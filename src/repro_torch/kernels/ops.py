@@ -1,0 +1,82 @@
+"""The port's kernel entry points: what the rest of ``repro_torch`` calls.
+
+Each op checks shapes, then chooses by the device of its tensors: CPU
+tensors go to the plain PyTorch version, CUDA tensors to the hand-written
+kernel (built on first use by ``_build``). There is no fallback between
+the two: a CUDA call either launches its kernel or raises.
+
+``LAUNCHES`` counts kernel launches per op. An op adds one exactly where
+it launches its kernel, so a run that reads the counts can show which
+kernels its path went through.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import bgmv as _bgmv
+from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import paged_attn as _paged
+
+LAUNCHES: Dict[str, int] = {"bgmv": 0, "paged_attention": 0,
+                            "flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(t: torch.Tensor, op: str) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{op}: unsupported device {t.device}")
+
+
+def bgmv(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         idx: torch.Tensor) -> torch.Tensor:
+    """Multi-LoRA decode gather: y[i] = x[i] @ A[idx[i]] @ B[idx[i]].
+    x: (B, d_in), a: (S, d_in, R), b: (S, R, d_out), idx: (B,) int32. Rank
+    masks and the alpha/r_eff scale are the caller's business."""
+    _bgmv.validate(x, a, b, idx)
+    if _on_cpu(x, "bgmv"):
+        return _bgmv.bgmv_plain(x, a, b, idx)
+    lib = _build.load()
+    LAUNCHES["bgmv"] += 1
+    return _bgmv.launch(lib, x, a, b, idx)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, page_tables: torch.Tensor,
+                    lengths: torch.Tensor, *, page_size: int
+                    ) -> torch.Tensor:
+    """One decode token per row against the page pool: q (B, H, Dh),
+    pools (NP, page_size, Hkv, Dh), page_tables (B, P), lengths (B,)."""
+    _paged.validate(q, k_pool, v_pool, page_tables, lengths)
+    if _on_cpu(q, "paged_attention"):
+        return _paged.paged_attention_plain(q, k_pool, v_pool, page_tables,
+                                            lengths)
+    lib = _build.load()
+    LAUNCHES["paged_attention"] += 1
+    return _paged.launch(lib, q, k_pool, v_pool, page_tables, lengths,
+                         page_size)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset=None) -> torch.Tensor:
+    """Batched attention with a causal mask at absolute offset
+    ``q_offset`` (None, an int, or a (B,) int tensor) and an optional
+    sliding window. q (B, Sq, H, D), k/v (B, Skv, Hkv, D)."""
+    _flash.validate(q, k, v, window)
+    if _on_cpu(q, "flash_attention"):
+        return _flash.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset)
+    lib = _build.load()
+    LAUNCHES["flash_attention"] += 1
+    return _flash.launch(lib, q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
