@@ -12,13 +12,18 @@ Phases, each of which raises on failure:
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    full-width Gemma-2B serving gives it, in float32 and bfloat16, with
-   kernel, plain and library times;
+   kernel, plain and library times; the verify kernel also against the
+   decode kernel at one token per row;
 4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
    the merged-weight oracle; then one more wave under ``torch.profiler``
    for the device-busy share of wall time and device time by kernel;
-5. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+5. speculative decode: the same 8 requests through ``ServeEngine(drafter=,
+   spec_k=4)`` on phase 4's weights and registry, in four waves (scripted
+   forced-accept and forced-reject, n-gram, self-draft), each wave's tokens
+   equal to phase 4's plain tokens and the verify kernel launched;
+6. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -249,9 +254,97 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
     return row
 
 
+def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
+    log("paged_verify_attention (verify: B=8, Sq=5, Hkv=1, G=8, Dh=256, "
+        "page 16):")
+    row = None
+    # the engine's pool and a spec_k = 4 window: ragged offsets, windows of
+    # 1..5 valid tokens, row 0 inactive
+    b, sq, hkv, g, dh, ps, p, n_pool = 8, 5, 1, 8, 256, 16, 13, 104
+    offs = torch.tensor([0, 42, 60, 77, 100, 150, 177, 203],
+                        dtype=torch.int32, device="cuda")
+    nv = torch.tensor([0, 5, 5, 3, 5, 1, 5, 5], dtype=torch.int32,
+                      device="cuda")
+    lengths = torch.where(nv > 0, offs + nv, 0).to(torch.int32)
+    perm = torch.randperm(n_pool, generator=gen, device="cuda")
+    tables = perm[:b * p].reshape(b, p).to(torch.int32).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, sq, hkv * g, dh, generator=gen,
+                        device="cuda").to(dtype)
+        kp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
+                         device="cuda").to(dtype)
+        vp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
+                         device="cuda").to(dtype)
+        args = (q, kp, vp, tables, lengths, offs)
+        want = verify_mod.paged_verify_attention_plain(*args)
+        got = ops.paged_verify_attention(*args, page_size=ps)
+        err = compare(f"{dtype} q_offsets={offs.tolist()} "
+                      f"lengths={lengths.tolist()}", got, want)
+        if bool((got[0] != 0).any()):
+            raise AssertionError("a length-0 row must give exact zeros")
+        if dtype != torch.float32:
+            continue
+        # one token per row at q_offsets = lengths - 1 is decode attention
+        lens1 = torch.tensor([0, 1, 16, 17, 77, 150, 177, 208],
+                             dtype=torch.int32, device="cuda")
+        offs1 = torch.clamp(lens1 - 1, min=0).to(torch.int32)
+        ver = ops.paged_verify_attention(q[:, :1].contiguous(), kp, vp,
+                                         tables, lens1, offs1,
+                                         page_size=ps)[:, 0]
+        dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, tables,
+                                  lens1, page_size=ps)
+        torch.cuda.synchronize()
+        d1 = float((ver - dec).abs().max())
+        ok = d1 <= 1e-6
+        log(f"  Sq=1 at q_offsets = lengths - 1 against the decode kernel: "
+            f"max_abs_err {d1:.3e} (tolerance 1e-6, bit-identical "
+            f"{bool(torch.equal(ver, dec))}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("verify kernel at Sq=1 disagrees with the "
+                                 "decode kernel")
+        ms = time_ms(lambda: ops.paged_verify_attention(*args, page_size=ps))
+        plain_ms = time_ms(lambda: verify_mod.paged_verify_attention_plain(
+            *args))
+        # K/V read once up to each row's frontier; every query token sees
+        # the positions up to its own (and below the length)
+        front = torch.clamp(torch.minimum(lengths, offs + sq), min=0)
+        seen = torch.minimum(lengths[:, None], offs[:, None] + 1
+                             + torch.arange(sq, device="cuda")[None, :])
+        seen = torch.where(lengths[:, None] > 0, seen, 0)
+        moved = (2 * nbytes(q) + nbytes(tables, lengths, offs)
+                 + 2 * int(front.sum()) * hkv * dh * q.element_size())
+        bd = bound(moved, 4 * int(seen.sum()) * hkv * g * dh, dtype)
+        log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
+            f"(no single PyTorch call reads through page tables) bound_ms "
+            f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, **bd}
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine on full-width Gemma-2B
 # ---------------------------------------------------------------------------
+
+def first_difference_ok(got, want, oracle, gaps) -> str:
+    """'' when ``got`` equals ``want``; else a description of the first
+    difference, which is allowed only where the oracle, still on ``want``'s
+    path, had a top-2 logit gap below GAP_TOL (a float32 near-tie)."""
+    import numpy as np
+    if got.shape != want.shape:
+        raise AssertionError(f"{got.shape} tokens, expected {want.shape}")
+    diff = np.nonzero(got != want)[0]
+    if diff.size == 0:
+        return ""
+    j = int(diff[0])
+    on_path = bool((oracle[:j] == want[:j]).all())
+    msg = (f"first differing token at {j}: {int(got[j])} vs {int(want[j])}, "
+           f"oracle top-2 gap {gaps[j]:.3e} (tolerance {GAP_TOL}), oracle "
+           f"on the same path before it: {on_path}")
+    if not on_path or gaps[j] >= GAP_TOL:
+        raise AssertionError(msg)
+    return msg
+
 
 def run_engine(torch, np) -> dict:
     from repro_torch.configs import get_config
@@ -308,13 +401,14 @@ def run_engine(torch, np) -> dict:
     log(f"  launches {launches} over {n_steps} decode steps and {n_chunks} "
         f"prefill chunks (expect bgmv {4 * cfg.num_layers}/step, "
         f"paged {cfg.num_layers}/step, flash {cfg.num_layers}/chunk)")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path")
     expect = {"bgmv": 4 * cfg.num_layers * n_steps,
               "paged_attention": cfg.num_layers * n_steps,
-              "flash_attention": cfg.num_layers * n_chunks}
+              "flash_attention": cfg.num_layers * n_chunks,
+              "paged_verify_attention": 0}     # plain decode: no verify
+    for name in ("bgmv", "paged_attention", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main "
+                                 f"path")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
     dec = engine.metrics.histogram("serve.decode_step_s")
@@ -329,42 +423,42 @@ def run_engine(torch, np) -> dict:
 
     t0 = time.perf_counter()
     exact = 0
+    oracle, gaps = [], []
     for i, uid in enumerate(uids):
         tree = adapters[f"client{i % len(ranks)}"]
-        want, gaps = merged_greedy_gaps(params, cfg, prompts[i], tree, steps)
-        got = outs[uid]
-        if got.shape != want.shape:
-            raise AssertionError(f"request {i}: {got.shape} tokens, "
-                                 f"expected {want.shape}")
-        diff = np.nonzero(got != want)[0]
-        if diff.size == 0:
+        want, gap = merged_greedy_gaps(params, cfg, prompts[i], tree, steps)
+        oracle.append(want)
+        gaps.append(gap)
+        msg = first_difference_ok(outs[uid], want, want, gap)
+        if msg:
+            log(f"  request {i} against the oracle: {msg}")
+        else:
             exact += 1
-            continue
-        j = int(diff[0])
-        log(f"  request {i}: first differing token at {j}: engine "
-            f"{int(got[j])} oracle {int(want[j])}, oracle top-2 gap "
-            f"{gaps[j]:.3e} (tolerance {GAP_TOL})")
-        if gaps[j] >= GAP_TOL:
-            raise AssertionError(f"request {i} differs from the oracle at "
-                                 f"token {j} with gap {gaps[j]}")
     log(f"  oracle (merged weights, token-by-token plain decode): {exact}/8 "
         f"exact in {time.perf_counter() - t0:.1f} s")
     profile_engine(torch, engine, prompts, len(ranks))
-    return launches
+    return {"launches": launches, "params": params, "cfg": cfg,
+            "registry": registry, "prompts": prompts, "steps": steps,
+            "plain": [outs[u] for u in uids], "oracle": oracle, "gaps": gaps,
+            "plain_steps": n_steps,
+            "engine_kw": dict(max_batch=8, max_seq=max_seq,
+                              page_size=page_size, prefill_chunk=chunk),
+            "adapters": [f"client{i % len(ranks)}" for i in range(8)]}
 
 
-def profile_engine(torch, engine, prompts, n_adapters) -> None:
+def profile_engine(torch, engine, prompts, n_adapters,
+                   step: str = "decode") -> None:
     """One more wave (8 requests x 8 tokens) under torch.profiler, after
     the counted and checked wave, in two windows: the first engine step
-    (admission and chunked prefill of every request, plus one decode step)
-    and the remaining decode steps. For each: the device-busy share of the
-    wall time and device time by kernel."""
+    (admission and chunked prefill of every request, plus one decode or
+    verify step) and the remaining steps. For each: the device-busy share
+    of the wall time and device time by kernel."""
     for i, p in enumerate(prompts):
         engine.submit(p, f"client{i % n_adapters}", max_new_tokens=8)
     steps0 = engine.steps
     profile_window(torch, "admission + prefill", engine.step_batch)
-    profile_window(torch, "decode", engine.run)
-    log(f"  (decode window: {engine.steps - steps0 - 1} steps)")
+    profile_window(torch, step, engine.run)
+    log(f"  ({step} window: {engine.steps - steps0 - 1} steps)")
 
 
 def profile_window(torch, label, fn) -> None:
@@ -381,7 +475,7 @@ def profile_window(torch, label, fn) -> None:
               if e.device_type == cuda and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     groups = {"port kernels": ("bgmv_kernel", "paged_attn_kernel",
-                               "flash_attn_kernel"),
+                               "flash_attn_kernel", "paged_verify_kernel"),
               "GEMM/GEMV": ("gemm", "gemv", "Gemv", "Gemm")}
     by_group = {g: 0.0 for g in (*groups, "other")}
     for e in events:
@@ -398,6 +492,102 @@ def profile_window(torch, label, fn) -> None:
             f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: speculative decode on full-width Gemma-2B
+# ---------------------------------------------------------------------------
+
+def run_spec(torch, ctx) -> dict:
+    """Four waves of phase 4's 8 requests with ``spec_k = 4`` on phase 4's
+    weights and registry (no second copy), each on a fresh engine with the
+    launch counts set to 0 just before and read just after. Returns the
+    launches summed over the waves."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (NGramDrafter, ScriptedDrafter,
+                                   SelfDrafter, ServeEngine)
+
+    cfg, steps, plain = ctx["cfg"], ctx["steps"], ctx["plain"]
+    spec_k, layers = 4, cfg.num_layers
+
+    def engine_with(drafter):
+        return ServeEngine(ctx["params"], cfg, ctx["registry"],
+                           drafter=drafter, spec_k=spec_k, device="cuda",
+                           **ctx["engine_kw"])
+
+    # warm-up (first verify and draft calls): not counted
+    warm = engine_with(SelfDrafter(1))
+    warm.submit(ctx["prompts"][0][:67], "client0", max_new_tokens=6)
+    warm.run()
+    del warm
+
+    waves = [("forced-accept", ScriptedDrafter(), plain),
+             ("forced-reject", ScriptedDrafter(),
+              [(p + 1) % cfg.vocab_size for p in plain]),
+             ("ngram(2)", NGramDrafter(2), None),
+             ("self(2)", SelfDrafter(2), None)]
+    total = {name: 0 for name in ops.LAUNCHES}
+    for label, drafter, scripts in waves:
+        engine = engine_with(drafter)
+        uids = [engine.submit(p, a, max_new_tokens=steps)
+                for p, a in zip(ctx["prompts"], ctx["adapters"])]
+        if scripts is not None:
+            for uid, script in zip(uids, scripts):
+                drafter.set(uid, script)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        for name, n in launches.items():
+            total[name] += n
+        st = engine.spec_stats()
+        ver = engine.metrics.histogram("serve.decode_step_s")
+        pre = engine.metrics.histogram("serve.prefill_row_s")
+        log(f"  {label}: {8 * steps / wall:.1f} tok/s ({wall:.3f} s), "
+            f"{st['dispatches']} dispatches (plain decode took "
+            f"{ctx['plain_steps']} steps), acceptance "
+            f"{st['acceptance_rate']:.3f} ({st['accepted']}/{st['drafted']}), "
+            f"rollback pages {st['rollback_pages']}, verify step p50 "
+            f"{ver.percentile(50) * 1e3:.3f} ms (n={ver.count}, total "
+            f"{ver.total * 1e3:.1f} ms), prefill {pre.total * 1e3:.1f} ms "
+            f"({engine.prefill_calls} chunks); launches {launches}")
+        for i, uid in enumerate(uids):
+            msg = first_difference_ok(outs[uid], plain[i], ctx["oracle"][i],
+                                      ctx["gaps"][i])
+            if msg:
+                log(f"    request {i} against plain decode: {msg}")
+        chunks = engine.prefill_calls
+        expect = {"paged_verify_attention": layers * st["dispatches"],
+                  "flash_attention": layers * chunks}
+        if isinstance(drafter, SelfDrafter):
+            # draft steps: 2 layers each, 4 LoRA'd projections per layer
+            draft = launches["paged_attention"]
+            if draft <= 0 or draft % drafter.draft_layers:
+                raise AssertionError(f"self-draft launched paged attention "
+                                     f"{draft} times")
+            expect.update(paged_attention=draft, bgmv=4 * draft)
+        else:
+            expect.update(paged_attention=0, bgmv=0)
+        if launches != expect:
+            raise AssertionError(f"{label}: launch counts {launches} != "
+                                 f"{expect}")
+        if label == "forced-accept" and \
+                not st["dispatches"] < ctx["plain_steps"]:
+            raise AssertionError(f"forced-accept took {st['dispatches']} "
+                                 f"dispatches, plain {ctx['plain_steps']}")
+        if label == "forced-reject" and \
+                (st["accepted"] != 0 or st["rollback_pages"] <= 0):
+            raise AssertionError(f"forced-reject: {st}")
+        engine.kv.allocator.check()
+        del engine
+    log(f"  4 waves, every request equal to plain decode; launches summed "
+        f"over the waves {total}")
+    profile_engine(torch, engine_with(NGramDrafter(2)), ctx["prompts"], 4,
+                   step="verify")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -408,6 +598,7 @@ def main() -> int:
     from repro_torch.kernels import bgmv as bgmv_mod
     from repro_torch.kernels import flash_attn as flash_mod
     from repro_torch.kernels import paged_attn as paged_mod
+    from repro_torch.kernels import verify as verify_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -428,18 +619,30 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"bgmv": check_bgmv(torch, ops, bgmv_mod, gen),
             "paged_attention": check_paged(torch, ops, paged_mod, gen),
-            "flash_attention": check_flash(torch, ops, flash_mod, gen)}
+            "flash_attention": check_flash(torch, ops, flash_mod, gen),
+            "paged_verify_attention": check_verify(torch, ops, verify_mod,
+                                                   paged_mod, gen)}
     log("[4] engine: full-width gemma-2b")
-    launches = run_engine(torch, np)
+    ctx = run_engine(torch, np)
+    log("[5] speculative decode: full-width gemma-2b, spec_k 4")
+    spec_launches = run_spec(torch, ctx)
+    # each kernel's launches on the path that exercises it: phase 4 for
+    # plain serving, phase 5 for the verify step
+    launches = dict(ctx["launches"], paged_verify_attention=spec_launches[
+        "paged_verify_attention"])
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),
             "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                                 "src/repro/kernels/paged_attn.py:103"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
-                                "src/repro/kernels/flash_attn.py:75")}
+                                "src/repro/kernels/flash_attn.py:75"),
+            "paged_verify_attention": ("src/repro_torch/kernels/csrc/verify.cu",
+                                       "src/repro/kernels/verify.py:103")}
     kernels = []
     for name, (source, replaces) in meta.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **rows[name]})

@@ -32,6 +32,7 @@ SIGNATURES: Dict[str, str] = {
     "bgmv_launch": "ppppp" + "iiiiii" + "p",
     "paged_attn_launch": "pppppp" + "iiiiii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppip" + "iiiiiiii" + "f" + "i" + "p",
+    "paged_verify_launch": "ppppppp" + "iiiiiii" + "f" + "i" + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

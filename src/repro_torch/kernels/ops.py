@@ -19,9 +19,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import bgmv as _bgmv
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import paged_attn as _paged
+from repro_torch.kernels import verify as _verify
 
 LAUNCHES: Dict[str, int] = {"bgmv": 0, "paged_attention": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0,
+                            "paged_verify_attention": 0}
 
 
 def reset_launches() -> None:
@@ -80,3 +82,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LAUNCHES["flash_attention"] += 1
     return _flash.launch(lib, q, k, v, causal=causal, window=window,
                          q_offset=q_offset)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_tables: torch.Tensor,
+                           lengths: torch.Tensor, q_offsets: torch.Tensor, *,
+                           page_size: int) -> torch.Tensor:
+    """Speculative verify: q (B, Sq, H, Dh), token i of row b at absolute
+    position q_offsets[b] + i, against the page pool (NP, page_size, Hkv,
+    Dh) through page_tables (B, P); causal within each row's window and
+    masked at lengths[b] (B,)."""
+    _verify.validate(q, k_pool, v_pool, page_tables, lengths, q_offsets)
+    if _on_cpu(q, "paged_verify_attention"):
+        return _verify.paged_verify_attention_plain(
+            q, k_pool, v_pool, page_tables, lengths, q_offsets)
+    lib = _build.load()
+    LAUNCHES["paged_verify_attention"] += 1
+    return _verify.launch(lib, q, k_pool, v_pool, page_tables, lengths,
+                          q_offsets, page_size)

@@ -6,5 +6,8 @@ from repro_torch.kernels.flash_attn import \
     flash_attention_plain as flash_attention_ref
 from repro_torch.kernels.paged_attn import \
     paged_attention_plain as paged_attention_ref
+from repro_torch.kernels.verify import \
+    paged_verify_attention_plain as paged_verify_ref
 
-__all__ = ["bgmv_ref", "flash_attention_ref", "paged_attention_ref"]
+__all__ = ["bgmv_ref", "flash_attention_ref", "paged_attention_ref",
+           "paged_verify_ref"]

@@ -1,6 +1,6 @@
 """Multi-tenant serving engine: continuous batching over per-request LoRA,
-with a paged KV cache and chunked prefill (port of the paged,
-non-speculative path of ``repro/serve/engine.py``).
+with a paged KV cache, chunked prefill and lossless speculative decode
+(port of the paged path of ``repro/serve/engine.py``).
 
 One decode step serves the whole batch. Each of the ``max_batch`` request
 rows carries its own adapter-slot index into the registry slabs; inside
@@ -17,6 +17,15 @@ met. Decode attention reads pages through the table
 tokens at a time through ``ops.flash_attention`` at absolute offset
 ``pos0``, writing K/V straight into the row's pages; padded chunk tails
 write to the pool's trash page.
+
+Speculative decode (``drafter=``, ``serve/spec.py``): a drafter proposes
+up to ``spec_k`` tokens per row, one verify step scores the context token
+and every draft through ``ops.paged_verify_attention`` (per-row causal
+frontier over the pages), and each row commits the longest prefix of
+drafts equal to the model's own greedy tokens plus the model's next token,
+so the tokens are those of plain decode whatever the drafter proposes.
+Pages past a row's next write position go back to the pool after every
+dispatch (``PagedKV.truncate``).
 
 The reference scans layers with ``lax.scan`` inside jitted steps; here
 the steps are eager PyTorch with a Python loop over layers, and the
@@ -144,6 +153,24 @@ def _layer_decode_paged(x, lp, slab, lc, idx, pos, lens, page, slot, tables,
     return _layer_out(x, o, lp, slab, idx, cfg)
 
 
+def _layer_verify_paged(x, lp, slab, lc, idx, tpos, lens, page, slot, tables,
+                        pos0, cfg: ModelConfig, page_size: int):
+    """A window of S speculative tokens per row through one layer.
+    x: (B, S, d); tpos: (B, S) absolute positions (pos0[b] + i);
+    page/slot: (B, S) write targets (tail tokens past the window and
+    inactive rows -> trash); tables: (B, P); lens: (B,) valid tokens
+    including the window (0 for inactive rows); pos0: (B,) window start,
+    the per-row causal frontier of the multi-token paged read."""
+    bsz, s, _ = x.shape
+    _, q, k, v = _layer_qkv(x, lp, slab, idx, tpos, cfg)
+    lc["k"][page, slot] = k             # in place; several rows may write
+    lc["v"][page, slot] = v             # trash, which is never read unmasked
+    o = ops.paged_verify_attention(q, lc["k"], lc["v"], tables, lens, pos0,
+                                   page_size=page_size)
+    o = o.reshape(bsz, s, cfg.num_heads * cfg.resolved_head_dim)
+    return _layer_out(x, o, lp, slab, idx, cfg)
+
+
 def _layer_prefill_paged(x, lp, slab, lc, idx, tpos, page, slot, table_row,
                          pos0: int, cfg: ModelConfig, page_size: int):
     """A chunk of one row's prompt through one layer. x: (1, C, d); tpos:
@@ -176,17 +203,22 @@ class ServeEngine:
     the scheduler is host-side (admission, paging, preemption, token
     routing, finish/recycle), everything per-token is on the device.
 
+    With a ``drafter`` (``serve/spec.py``) every step is one draft-verify
+    dispatch over windows of ``spec_k + 1`` tokens; the tokens are those
+    of plain decode.
+
     ``device=None`` means CUDA; the params and the registry must live on
-    the engine's device. ``kv_mode="dense"``, ``drafter=``, ``mesh=`` and
-    any dtype but float32 (params, registry, ``cache_dtype``) are not
-    ported yet and raise ``NotImplementedError``.
+    the engine's device. ``kv_mode="dense"``, ``mesh=`` and any dtype but
+    float32 (params, registry, ``cache_dtype``) are not ported yet and
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, params, cfg: ModelConfig, registry, *,
                  max_batch: int = 8, max_seq: int = 128,
                  kv_mode: str = "paged", page_size: int = 8,
                  num_pages: Optional[int] = None, prefill_chunk: int = 16,
-                 drafter=None, mesh=None, cache_dtype=torch.float32,
+                 drafter=None, spec_k: int = 4, mesh=None,
+                 cache_dtype=torch.float32,
                  metrics: Optional[MetricsRegistry] = None,
                  name: str = "serve", device=None):
         if cfg.arch_type != "dense" or cfg.num_experts:
@@ -195,8 +227,8 @@ class ServeEngine:
                 f"{cfg.arch_type!r}")
         if kv_mode != "paged":
             raise NotImplementedError(f"kv_mode={kv_mode!r} is not ported")
-        if drafter is not None:
-            raise NotImplementedError("speculative decode is not ported")
+        if drafter is not None and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported")
         # The kernels take one dtype for all float operands, and only
@@ -217,6 +249,8 @@ class ServeEngine:
         self.registry = registry
         self.max_batch = int(max_batch)
         self.max_seq = int(max_seq)
+        self.drafter = drafter
+        self.spec_k = int(spec_k)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.name = str(name)
         self.page_size = int(page_size)
@@ -248,6 +282,10 @@ class ServeEngine:
         self.deferrals = 0
         self.preemptions = 0
         self.bgmv_groups = 0
+        self.spec_dispatches = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.rollback_pages = 0
 
     steps = _counter_view("steps")
     tokens_generated = _counter_view("tokens")
@@ -256,6 +294,10 @@ class ServeEngine:
     deferrals = _counter_view("deferrals")
     preemptions = _counter_view("preemptions")
     bgmv_groups = _gauge_view("bgmv_groups")
+    spec_dispatches = _counter_view("spec.dispatches")
+    drafted_tokens = _counter_view("spec.drafted")
+    accepted_tokens = _counter_view("spec.accepted")
+    rollback_pages = _counter_view("spec.rollback_pages")
 
     # -- introspection ------------------------------------------------------
 
@@ -280,18 +322,60 @@ class ServeEngine:
         return norm(x, self._final_norm) @ self.params.head()
 
     @torch.no_grad()
-    def _decode_step(self, tables, idx, tokens, pos, lens) -> torch.Tensor:
+    def _decode_step(self, tables, idx, tokens, pos, lens,
+                     layers: Optional[int] = None) -> torch.Tensor:
         """tokens: (B, 1), pos: (B,), lens: (B,) valid tokens including this
-        one (0 for inactive rows), tables: (B, P) -> logits (B, V)."""
+        one (0 for inactive rows), tables: (B, P) -> logits (B, V).
+
+        ``layers=d`` runs only the first ``d`` layers before the head (the
+        self-draft step). A position past the row's page table writes to
+        trash: a draft loop of fixed length can run there near the end of
+        a request, and clipping the index instead would alias the write
+        onto the row's last live page and corrupt committed KV. Plain
+        decode never reaches past the table, so it computes the same."""
         ps = self.page_size
+        p = tables.shape[1]
         x = self._embed(tokens, pos[:, None])
-        page = torch.gather(tables, 1, (pos // ps).long()[:, None])[:, 0]
-        page = torch.where(lens > 0, page, self.kv.trash).long()
+        pageidx = (pos // ps).long()
+        page = torch.gather(tables, 1,
+                            torch.clamp(pageidx, max=p - 1)[:, None])[:, 0]
+        page = torch.where((lens > 0) & (pageidx < p), page,
+                           self.kv.trash).long()
         slot = (pos % ps).long()
-        for lp, slab, lc in zip(self._layers, self._slabs, self._pools):
+        n = self.cfg.num_layers if layers is None else int(layers)
+        for lp, slab, lc in zip(self._layers[:n], self._slabs[:n],
+                                self._pools[:n]):
             x = _layer_decode_paged(x, lp, slab, lc, idx, pos, lens, page,
                                     slot, tables, self.cfg, ps)
         return self._logits(x[:, 0, :])
+
+    @torch.no_grad()
+    def _verify_step(self, tables, idx, tokens, pos0, nv) -> torch.Tensor:
+        """Score a window of S = spec_k + 1 tokens per row (the context
+        token and spec_k drafts) in one pass. tokens: (B, S), pos0: (B,)
+        window start (where the context token's KV lands), nv: (B,) valid
+        tokens in the window (0 for inactive rows), tables: (B, P)
+        -> logits (B, S, V). Token i of row b sits at position pos0[b] + i;
+        its K/V is written into the row's pages first (tokens past nv go to
+        trash), then all S positions attend causally through the pages."""
+        ps = self.page_size
+        s = tokens.shape[1]
+        p = tables.shape[1]
+        ar = torch.arange(s, device=self.device)
+        tpos = pos0[:, None] + ar[None, :]                       # (B, S)
+        x = self._embed(tokens, tpos)
+        # Positions past the window may step past the table: clip, then
+        # send everything past nv to trash.
+        page = torch.gather(tables, 1,
+                            torch.clamp(tpos // ps, max=p - 1).long())
+        page = torch.where(ar[None, :] < nv[:, None], page,
+                           self.kv.trash).long()
+        slot = (tpos % ps).long()
+        lens = torch.where(nv > 0, pos0 + nv, 0).to(torch.int32)
+        for lp, slab, lc in zip(self._layers, self._slabs, self._pools):
+            x = _layer_verify_paged(x, lp, slab, lc, idx, tpos, lens, page,
+                                    slot, tables, pos0, self.cfg, ps)
+        return self._logits(x)
 
     @torch.no_grad()
     def _prefill_chunk(self, table_row, idx, tokens, pos0: int, nvalid: int
@@ -415,16 +499,25 @@ class ServeEngine:
         if len(req["out"]) >= req["max_new"]:
             self._finish(row, req)
 
-    def _ensure_pages(self) -> None:
+    def _spec_window(self, req: dict) -> int:
+        """Draft tokens worth verifying for this row: never more than the
+        request could still commit (a dispatch commits 1..k+1 tokens)."""
+        return min(self.spec_k, req["max_new"] - len(req["out"]) - 1)
+
+    def _ensure_pages(self, lookahead: Optional[Dict[int, int]] = None
+                      ) -> None:
         """Every active row must own the page its next token lands in,
-        extending, and preempting the youngest other rows when the pool
-        is dry."""
+        plus ``lookahead[row]`` further positions for a speculative
+        window, extending, and preempting the youngest other rows when the
+        pool is dry."""
+        lookahead = lookahead or {}
         alloc = self.kv.allocator
         for row in range(self.max_batch):
             req = self._rows[row]
             if req is None:
                 continue
-            needed = req["t"] // self.page_size + 1
+            needed = (req["t"] + lookahead.get(row, 0)) \
+                // self.page_size + 1
             if self.kv.allocated(row) >= needed:
                 continue
             grow = needed - self.kv.allocated(row)
@@ -465,9 +558,14 @@ class ServeEngine:
         return perm, inv
 
     def step_batch(self) -> None:
-        """Admit (+prefill), page, run one decode step, harvest/recycle."""
+        """Admit (+prefill), page, run one decode (or draft-verify) step,
+        harvest/recycle."""
         admitted = self._admit()
-        self._ensure_pages()
+        look = None
+        if self.drafter is not None:
+            look = {i: self._spec_window(r)
+                    for i, r in enumerate(self._rows) if r is not None}
+        self._ensure_pages(look)
         active = [(i, r) for i, r in enumerate(self._rows) if r is not None]
         if not active:
             # admitted rows may have finished inside _admit (prefill +
@@ -481,6 +579,9 @@ class ServeEngine:
                 raise RuntimeError(
                     f"{len(self._queue)} queued requests but no adapter "
                     f"slot can be acquired and no row is active")
+            return
+        if self.drafter is not None:
+            self._spec_dispatch(active)
             return
         tokens = np.zeros((self.max_batch, 1), np.int32)
         pos = np.zeros((self.max_batch,), np.int32)
@@ -510,6 +611,74 @@ class ServeEngine:
                 self.tokens_generated += 1
             if len(req["out"]) >= req["max_new"]:    # finished: recycle row
                 self._finish(i, req)
+
+    def _spec_dispatch(self, active) -> None:
+        """One draft-verify round: the drafter proposes up to ``spec_k``
+        tokens per row, one verify step scores every draft position plus
+        the model's own next token, and each row commits the longest
+        matching prefix + 1 (exact greedy match, so the tokens equal plain
+        decode's). Rejected suffixes roll back by truncating the row's page
+        list: KV written for rejected positions dies by the length mask and
+        is overwritten in place when decode reaches those positions."""
+        s = self.spec_k + 1
+        tokens = np.zeros((self.max_batch, s), np.int32)
+        pos0 = np.zeros((self.max_batch,), np.int32)
+        idx = np.zeros((self.max_batch,), np.int32)
+        nv = np.zeros((self.max_batch,), np.int32)
+        props = np.asarray(self.drafter.propose(self, active), np.int32)
+        if props.shape != (len(active), self.spec_k):
+            raise ValueError(
+                f"drafter proposed {props.shape}, expected "
+                f"{(len(active), self.spec_k)}")
+        for j, (i, req) in enumerate(active):
+            # rows join the batch past their prompt (prefill runs at
+            # admission), so the context token is always a sample
+            k_b = self._spec_window(req)
+            tokens[i, 0] = req["out"][-1]
+            tokens[i, 1:1 + k_b] = props[j, :k_b]
+            nv[i] = k_b + 1
+            pos0[i] = req["t"]
+            idx[i] = req["slot"]
+        t0 = time.perf_counter()
+        perm, inv = self._slot_order(idx, nv > 0)
+        dev = self._to_device
+        logits = self._verify_step(dev(self.kv.tables[perm]), dev(idx[perm]),
+                                   dev(tokens[perm]), dev(pos0[perm]),
+                                   dev(nv[perm]))
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(
+            )[inv]
+        self.metrics.histogram(f"{self.name}.decode_step_s").observe(
+            time.perf_counter() - t0)
+        self.steps += 1
+        self.spec_dispatches += 1
+        for i, req in active:
+            k_b = int(nv[i]) - 1
+            accepted = 0
+            while accepted < k_b and \
+                    tokens[i, 1 + accepted] == greedy[i, accepted]:
+                accepted += 1
+            commit = accepted + 1     # matched drafts + the model's own
+            req["out"].extend(int(x) for x in greedy[i, :commit])
+            req["t"] += commit
+            self.tokens_generated += commit
+            self.drafted_tokens += k_b
+            self.accepted_tokens += accepted
+            if len(req["out"]) >= req["max_new"]:
+                self._finish(i, req)
+            else:
+                # rollback: pages past the next write position go home
+                self.rollback_pages += self.kv.truncate(i, req["t"])
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculative-decode counts (all zeros without a drafter)."""
+        return {
+            "dispatches": self.spec_dispatches,
+            "drafted": self.drafted_tokens,
+            "accepted": self.accepted_tokens,
+            "acceptance_rate": self.accepted_tokens
+            / max(self.drafted_tokens, 1),
+            "rollback_pages": self.rollback_pages,
+        }
 
     def run(self) -> Dict[str, np.ndarray]:
         """Drive until every submitted request has finished."""

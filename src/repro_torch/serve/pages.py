@@ -213,5 +213,20 @@ class PagedKV:
         self.allocator.free(row)
         self.tables[row, :] = self.trash
 
+    def truncate(self, row: int, new_len: int) -> int:
+        """Roll a row back to ``new_len`` valid tokens, freeing every page
+        past the one its next write lands in (``new_len // page_size``).
+        Freed table entries turn back into trash, so stale KV in returned
+        pages is never read through this row again; stale slots inside the
+        kept pages are dead by the length mask and are overwritten in place
+        as decode goes on. Returns the number of pages freed."""
+        if new_len < 0:
+            raise ValueError(f"negative length {new_len}")
+        keep = min(new_len // self.page_size + 1, self.allocated(row))
+        freed = self.allocator.truncate(row, keep)
+        if freed:
+            self.tables[row, keep:keep + len(freed)] = self.trash
+        return len(freed)
+
     def allocated(self, row: int) -> int:
         return len(self.allocator.pages_of(row))

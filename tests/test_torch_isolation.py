@@ -64,9 +64,10 @@ def test_port_modules_mirror_the_reference_layout():
                 "configs/minitron_4b.py", "core/lora.py", "models/common.py",
                 "models/transformer.py", "models/model.py",
                 "obs/metrics.py", "serve/pages.py", "serve/registry.py",
-                "serve/oracle.py", "serve/engine.py", "kernels/ref.py",
-                "kernels/ops.py", "kernels/bgmv.py", "kernels/paged_attn.py",
-                "kernels/flash_attn.py"):
+                "serve/oracle.py", "serve/engine.py", "serve/spec.py",
+                "kernels/ref.py", "kernels/ops.py", "kernels/bgmv.py",
+                "kernels/paged_attn.py", "kernels/flash_attn.py",
+                "kernels/verify.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

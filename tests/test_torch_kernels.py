@@ -211,12 +211,15 @@ def test_kernel_launchers_refuse_cpu_tensors():
 
 def test_kernel_sources_and_build_recipe():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["bgmv.cu", "flash_attn.cu", "paged_attn.cu"]
+    assert names == ["bgmv.cu", "flash_attn.cu", "paged_attn.cu",
+                     "verify.cu"]
     replaced = {"bgmv.cu": "src/repro/kernels/bgmv.py::bgmv",
                 "paged_attn.cu":
                     "src/repro/kernels/paged_attn.py::paged_attention",
                 "flash_attn.cu":
-                    "src/repro/kernels/flash_attn.py::flash_attention"}
+                    "src/repro/kernels/flash_attn.py::flash_attention",
+                "verify.cu":
+                    "src/repro/kernels/verify.py::paged_verify_attention"}
     for path in _build.sources():
         head = re.sub(r"\s*\n//\s*", " ", path.read_text().split("#include")[0])
         assert replaced[path.name] in head, path.name

@@ -248,8 +248,8 @@ def test_registry_slabs_after_register_evict_and_hot_swap(fx):
 
 def test_engine_rejects_unported_modes_and_bad_requests(fx):
     _, treg = fx.registries()
-    for kw in ({"kv_mode": "dense"}, {"drafter": object()},
-               {"mesh": object()}, {"cache_dtype": torch.bfloat16}):
+    for kw in ({"kv_mode": "dense"}, {"mesh": object()},
+               {"cache_dtype": torch.bfloat16}):
         with pytest.raises(NotImplementedError):
             ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu", **kw)
     eng = ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu", max_seq=8,
