@@ -24,7 +24,7 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # only "dense" is ported so far
+    arch_type: str  # "dense" (decoder) or "encoder" (classifier) so far
     num_layers: int
     d_model: int
     num_heads: int
@@ -37,6 +37,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     activation: str = "silu"   # silu | geglu | gelu
     use_bias: bool = False
+    num_classes: int = 0       # encoder-only classification (roberta)
     tie_embeddings: bool = False
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     source: str = ""           # citation
@@ -52,7 +53,10 @@ class ModelConfig:
         """Analytic parameter count of the dense base model (no LoRA)."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab_size * d
-        head = 0 if self.tie_embeddings else self.vocab_size * d
+        if self.num_classes:
+            head = d * self.num_classes
+        else:
+            head = 0 if self.tie_embeddings else self.vocab_size * d
         attn = 2 * d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
         mult = 3 if self.activation in ("silu", "geglu") else 2
         return emb + head + self.num_layers * (attn + mult * d * self.d_ff)
@@ -61,6 +65,7 @@ class ModelConfig:
 _ALIASES = {
     "gemma-2b": "gemma_2b",
     "minitron-4b": "minitron_4b",
+    "roberta-large": "roberta_large",
 }
 
 

@@ -33,6 +33,8 @@ SIGNATURES: Dict[str, str] = {
     "paged_attn_launch": "pppppp" + "iiiiii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppip" + "iiiiiiii" + "f" + "i" + "p",
     "paged_verify_launch": "ppppppp" + "iiiiiii" + "f" + "i" + "p",
+    "lora_matmul_launch": "ppppppp" + "iiiiiii" + "p",
+    "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -132,7 +134,6 @@ def check(rc: int, kernel: str) -> None:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def check_cuda_args(kernel: str, floats, ints=()) -> int:
     """Validate a launch's tensors: one CUDA device, contiguous, the float

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.common import NEG_INF
+from repro_torch.kernels.paged_attn import NEG_INF
 
 
 def validate(q, k, v, window) -> None:

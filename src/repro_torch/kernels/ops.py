@@ -11,19 +11,22 @@ kernels its path went through.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import bgmv as _bgmv
 from repro_torch.kernels import flash_attn as _flash
+from repro_torch.kernels import lora_matmul as _lora
 from repro_torch.kernels import paged_attn as _paged
 from repro_torch.kernels import verify as _verify
 
 LAUNCHES: Dict[str, int] = {"bgmv": 0, "paged_attention": 0,
                             "flash_attention": 0,
-                            "paged_verify_attention": 0}
+                            "paged_verify_attention": 0,
+                            "lora_matmul": 0, "lora_matmul_dx": 0,
+                            "lora_matmul_grad_ab": 0}
 
 
 def reset_launches() -> None:
@@ -100,3 +103,50 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
     LAUNCHES["paged_verify_attention"] += 1
     return _verify.launch(lib, q, k_pool, v_pool, page_tables, lengths,
                           q_offsets, page_size)
+
+
+def lora_matmul(x: torch.Tensor, w0: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, scale, *, return_xa: bool = False):
+    """Fused y = x @ W0 + scale * (x @ A) @ B with x (M, K), w0 (K, N),
+    a (K, R), b (R, N); ``scale`` a Python number or a one-element tensor
+    on x's device (read by the kernel, never copied to the host). With
+    ``return_xa`` also the float32 bottleneck xa = x @ A (M, R), which the
+    backward needs."""
+    _lora.validate(x, w0, a, b)
+    scale = _lora.scale_tensor(scale, x)
+    if _on_cpu(x, "lora_matmul"):
+        y, xa = _lora.lora_matmul_parts(x, w0, a, b, scale)
+        return (y, xa) if return_xa else y
+    lib = _build.load()
+    LAUNCHES["lora_matmul"] += 1
+    return _lora.launch(lib, x, w0, a, b, scale, return_xa)
+
+
+def lora_matmul_dx(dy: torch.Tensor, w0: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, scale, *, need_dx: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Backward to the input: (dx, g) with g = dy @ B^T (M, R) float32 and
+    dx = dy @ W0^T + scale * g @ A^T (M, K); dy (M, N) and the forward's
+    w0, a, b. Without ``need_dx``, (None, g): g alone, no W0 product."""
+    _lora.validate_dx(dy, w0, a, b)
+    scale = _lora.scale_tensor(scale, dy)
+    if _on_cpu(dy, "lora_matmul_dx"):
+        return _lora.lora_matmul_dx_plain(dy, w0, a, b, scale, need_dx)
+    lib = _build.load()
+    LAUNCHES["lora_matmul_dx"] += 1
+    return _lora.launch_dx(lib, dy, w0, a, b, scale, need_dx)
+
+
+def lora_matmul_grad_ab(x: torch.Tensor, xa: torch.Tensor, dy: torch.Tensor,
+                        g: torch.Tensor, scale
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward to the factors: dA = scale * x^T g (K, R) and dB = scale *
+    xa^T dy (R, N), from the forward's x (M, K) and xa, dy (M, N) and the
+    dx op's g."""
+    _lora.validate_grad_ab(x, xa, dy, g)
+    scale = _lora.scale_tensor(scale, x)
+    if _on_cpu(x, "lora_matmul_grad_ab"):
+        return _lora.lora_matmul_grad_ab_plain(x, xa, dy, g, scale)
+    lib = _build.load()
+    LAUNCHES["lora_matmul_grad_ab"] += 1
+    return _lora.launch_grad_ab(lib, x, xa, dy, g, scale)

@@ -15,7 +15,11 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.common import NEG_INF
+
+# Masked score sentinel, as ``kNegInf`` in csrc/common.cuh and the
+# reference's attention; the attention plain versions and
+# ``models/common.py`` use this one.
+NEG_INF = -1e30
 
 
 def validate(q, k_pool, v_pool, page_tables, lengths) -> None:

@@ -18,7 +18,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.common import NEG_INF
+from repro_torch.kernels.paged_attn import NEG_INF
 
 # The most dynamic shared memory one block may use on sm_90 (as
 # ``kMaxSmemBytes`` in csrc/common.cuh).

@@ -12,8 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import Adapter, apply_lora
-
-NEG_INF = -1e30
+from repro_torch.kernels.paged_attn import NEG_INF
 
 # ---------------------------------------------------------------------------
 # Norms & positions

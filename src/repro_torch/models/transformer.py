@@ -1,5 +1,6 @@
-"""Decoder-only dense transformer (port of the dense family of
-``repro/models/transformer.py``).
+"""Dense transformer (port of the dense family of
+``repro/models/transformer.py``): the decoder, and the RoBERTa-style
+encoder classifier (``causal=False``, CLS pooling, a ``cls_head``).
 
 The model is an ``nn.Module`` whose parameters keep the reference's
 stacked layout: every per-layer weight is one ``(L, ...)`` tensor and
@@ -9,7 +10,10 @@ reference's ``lax.scan`` over layers becomes a Python loop over
 ``Transformer.layer(l)``, which hands out per-layer views.
 
 ``Transformer.lora`` is the reference's ``params["lora"]``:
-``{target: {"A": (L, d_in, r), "B": (L, r, d_out), "mask": (L, r)}}``.
+``{target: {"A": (L, d_in, r), "B": (L, r, d_out), "mask": (L, r)}}``;
+``Transformer.cls`` holds a classifier's ``cls_head`` (d, C) and
+``cls_bias`` (C,) (empty otherwise). Both are plain dicts of tensors, so a
+trainer can put leaves that require grad in their place (``fed/client``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.models.common import (attention, cache_insert,
                                        sinusoidal_positions)
 
 LoraTree = Dict[str, lora_lib.Adapter]
+HEAD_KEYS = ("cls_head", "cls_bias")
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -50,9 +55,10 @@ class ParamGroup(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense decoder: ``embed`` (V, d), stacked ``layers`` groups
-    ``ln1``/``attn``/``ln2``/``mlp``, ``final_norm``, optional ``lm_head``
-    (d, V) (tied to ``embed`` otherwise)."""
+    """Dense decoder or encoder: ``embed`` (V, d), stacked ``layers``
+    groups ``ln1``/``attn``/``ln2``/``mlp``, ``final_norm``, optional
+    ``lm_head`` (d, V) (tied to ``embed`` otherwise), and for classifiers
+    ``cls`` = {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
 
     GROUPS = ("ln1", "attn", "ln2", "mlp")
 
@@ -66,6 +72,7 @@ class Transformer(nn.Module):
         self.lm_head = (_frozen(tree["lm_head"]) if "lm_head" in tree
                         else None)
         self.lora = lora
+        self.cls = {k: tree[k] for k in HEAD_KEYS if k in tree}
 
     def layer(self, index: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Layer ``index`` as the reference's per-layer param dict
@@ -74,6 +81,21 @@ class Transformer(nn.Module):
 
     def head(self) -> torch.Tensor:
         return self.lm_head if self.lm_head is not None else self.embed.T
+
+    def to_device(self, device) -> "Transformer":
+        """A copy with every tensor (weights, adapters, head) on
+        ``device``, e.g. the same weights on the CPU and on the card."""
+        def move(node):
+            if isinstance(node, dict):
+                return {k: move(v) for k, v in node.items()}
+            return node.detach().to(device)
+
+        tree = {"embed": self.embed, "final_norm": self.final_norm.as_dict(),
+                "layers": {g: self.layers[g].as_dict() for g in self.GROUPS},
+                **self.cls}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return Transformer(self.cfg, move(tree), move(self.lora))
 
     def replace(self, group: str, name: str, value: torch.Tensor
                 ) -> "Transformer":
@@ -168,9 +190,58 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                        "ln2": norm_init((L, d)), "mlp": mlp_p},
             "final_norm": norm_init((d,))}
     lora = init_lora(gen, cfg, device=dev)
-    if not cfg.tie_embeddings:
+    if cfg.num_classes:
+        tree["cls_head"] = dense(d, cfg.num_classes)
+        tree["cls_bias"] = torch.zeros((cfg.num_classes,), dtype=dtype,
+                                       device=dev)
+    elif not cfg.tie_embeddings:
         tree["lm_head"] = dense(d, cfg.vocab_size)
     return Transformer(cfg, tree, lora)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training, evaluation)
+# ---------------------------------------------------------------------------
+
+def layer_slice(tree: Dict, index: int) -> Dict:
+    """{name: {key: (L, ...) tensor}} -> the layer-``index`` views."""
+    return {t: {k: v[index] for k, v in leaf.items()}
+            for t, leaf in tree.items()}
+
+
+def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
+                  *, causal: bool, positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm block over a whole sequence. x: (B, S, d)."""
+    q, k, v = qkv_proj(norm(x, lp["ln1"]), lp["attn"], cfg, ad)
+    if cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    x = x + out_proj(o, lp["attn"], cfg, ad)
+    return x + mlp(norm(x, lp["ln2"]), lp["mlp"], cfg, ad)
+
+
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
+            causal: bool = True) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, V), or (B, C) for a classifier
+    (CLS pooling: the final norm of position 0). Differentiable in
+    ``params.lora`` and ``params.cls``; attention is the plain masked
+    softmax, as in the reference's training path."""
+    b, s = tokens.shape
+    x = params.embed[tokens.long()]                          # (B, S, d)
+    positions = torch.arange(s, device=x.device)[None, :]
+    if cfg.rope_theta == 0:
+        # content scaled up so absolute positions don't swamp it
+        x = x * math.sqrt(cfg.d_model) + sinusoidal_positions(
+            positions, cfg.d_model).to(x.dtype)
+    for layer in range(cfg.num_layers):
+        x = layer_forward(x, params.layer(layer),
+                          layer_slice(params.lora, layer), cfg,
+                          causal=causal, positions=positions)
+    x = norm(x, params.final_norm.as_dict())
+    if cfg.num_classes:
+        return x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"]
+    return x @ params.head()
 
 
 # ---------------------------------------------------------------------------
@@ -182,12 +253,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return init_kv_cache(cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
                          cfg.resolved_head_dim, window=cfg.sliding_window,
                          dtype=dtype, device=device)
-
-
-def layer_slice(tree: Dict, index: int) -> Dict:
-    """{name: {key: (L, ...) tensor}} -> the layer-``index`` views."""
-    return {t: {k: v[index] for k, v in leaf.items()}
-            for t, leaf in tree.items()}
 
 
 def layer_decode(x: torch.Tensor, lp: Dict, ad: LoraTree,

@@ -82,6 +82,10 @@ class Histogram:
     def percentile(self, p: float) -> float:
         return percentile(self._window, p)
 
+    def values(self) -> list:
+        """The windowed observations, oldest first."""
+        return list(self._window)
+
     def summary(self) -> Dict[str, float]:
         if not self.count:
             return {"count": 0}

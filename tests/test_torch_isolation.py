@@ -67,7 +67,10 @@ def test_port_modules_mirror_the_reference_layout():
                 "serve/oracle.py", "serve/engine.py", "serve/spec.py",
                 "kernels/ref.py", "kernels/ops.py", "kernels/bgmv.py",
                 "kernels/paged_attn.py", "kernels/flash_attn.py",
-                "kernels/verify.py"):
+                "kernels/verify.py", "kernels/lora_matmul.py",
+                "configs/roberta_large.py", "data/synthetic.py",
+                "data/partition.py", "optim/optimizers.py",
+                "optim/schedules.py", "fed/client.py", "fed/simulation.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 
@@ -88,6 +91,30 @@ def test_entry_points_refuse_a_missing_gpu_without_device_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(params, cfg, registry)
     ServeEngine(params, cfg, registry, device="cpu")     # asked for: fine
+
+
+def test_training_entry_points_refuse_a_missing_gpu_without_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately means it")
+    from repro_torch.configs import get_reduced
+    from repro_torch.fed import (evaluate, make_cohort_train,
+                                 make_local_train)
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = get_reduced("roberta-large")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_local_train(cfg, adamw(1e-3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_cohort_train(cfg, adamw(1e-3))
+    params = model.init_params(cfg, device="cpu")
+    batch = {"tokens": torch.zeros(2, 4, dtype=torch.int32),
+             "labels": torch.zeros(2, dtype=torch.int32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate(params, batch, cfg)
+    assert set(evaluate(params, batch, cfg, device="cpu")) == {"loss", "acc"}
+    make_local_train(cfg, adamw(1e-3), device="cpu")    # asked for: fine
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

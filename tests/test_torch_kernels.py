@@ -21,6 +21,7 @@ from repro.models.common import _repeat_kv as j_repeat_kv
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import bgmv as bgmv_mod
 from repro_torch.kernels import flash_attn as flash_mod
+from repro_torch.kernels import lora_matmul as lora_mod
 from repro_torch.kernels import paged_attn as paged_mod
 
 # float32 on both sides; the products are summed in another order, so
@@ -61,6 +62,80 @@ def test_bgmv_plain_matches_reference(bsz, slots, d_in, r, d_out, seed):
     np.testing.assert_allclose(got, np.asarray(jops.bgmv(
         jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), jnp.asarray(idx),
         interpret=True)), **TOL)
+
+
+def _lora_inputs(seed, m, k, n, r):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w0 = rng.standard_normal((k, n), dtype=np.float32) / np.sqrt(k)
+    a = rng.standard_normal((k, r), dtype=np.float32) / np.sqrt(k)
+    b = rng.standard_normal((r, n), dtype=np.float32) * 0.1
+    return x, w0.astype(np.float32), a.astype(np.float32), b
+
+
+# ragged M, K and N (no multiple of the kernels' 64/16 tiles or of the
+# reference's 128-lane blocks), each rank 1..8
+@pytest.mark.parametrize("m,k,n,r", [
+    (37, 50, 70, 1), (37, 50, 70, 2), (64, 48, 96, 3), (5, 129, 33, 4),
+    (100, 64, 64, 5), (1, 40, 24, 6), (70, 33, 130, 7), (48, 96, 80, 8),
+])
+def test_lora_matmul_plain_matches_reference_and_pallas(m, k, n, r):
+    x, w0, a, b = _lora_inputs(m + k + r, m, k, n, r)
+    scale = 16.0 / r
+    got = ops.lora_matmul(_t(x), _t(w0), _t(a), _t(b), scale).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.lora_matmul_ref(
+        jnp.asarray(x), jnp.asarray(w0), jnp.asarray(a), jnp.asarray(b),
+        scale)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.lora_matmul(
+        jnp.asarray(x), jnp.asarray(w0), jnp.asarray(a), jnp.asarray(b),
+        scale, interpret=True)), **TOL)
+    # the bottleneck the backward keeps, and the same y beside it
+    y2, xa = ops.lora_matmul(_t(x), _t(w0), _t(a), _t(b), scale,
+                             return_xa=True)
+    np.testing.assert_array_equal(y2.numpy(), got)
+    np.testing.assert_allclose(xa.numpy(), x @ a, **TOL)
+
+
+def test_lora_matmul_backward_ops_match_their_formulas():
+    """dx, g, dA and dB of the ops against the chain rule in float64."""
+    x, w0, a, b = _lora_inputs(3, 21, 30, 26, 5)
+    dy = np.random.default_rng(4).standard_normal((21, 26)).astype(np.float32)
+    s = 3.2
+    dx, g = ops.lora_matmul_dx(_t(dy), _t(w0), _t(a), _t(b), s)
+    none, g2 = ops.lora_matmul_dx(_t(dy), _t(w0), _t(a), _t(b), s,
+                                  need_dx=False)
+    assert none is None and torch.equal(g, g2)
+    _, xa = ops.lora_matmul(_t(x), _t(w0), _t(a), _t(b), s, return_xa=True)
+    da, db = ops.lora_matmul_grad_ab(_t(x), xa, _t(dy), g, s)
+    x64, w64, a64, b64, dy64 = (v.astype(np.float64)
+                                for v in (x, w0, a, b, dy))
+    g64 = dy64 @ b64.T
+    np.testing.assert_allclose(g.numpy(), g64, **TOL)
+    np.testing.assert_allclose(dx.numpy(), dy64 @ w64.T + s * g64 @ a64.T,
+                               **TOL)
+    np.testing.assert_allclose(da.numpy(), s * x64.T @ g64, **TOL)
+    np.testing.assert_allclose(db.numpy(), s * (x64 @ a64).T @ dy64, **TOL)
+
+
+def test_lora_matmul_backward_refuses_bf16():
+    """bf16 training is not ported: the backward ops (and so a bf16
+    ``apply_lora`` that needs a gradient) raise, on any device, before any
+    kernel; the bf16 forward stays."""
+    from repro_torch.core import lora as lora_lib
+    x, w0, a, b = (torch.from_numpy(v).to(torch.bfloat16)
+                   for v in _lora_inputs(3, 6, 8, 5, 2))
+    dy = torch.ones(6, 5, dtype=torch.bfloat16)
+    xa = torch.zeros(6, 2)
+    assert ops.lora_matmul(x, w0, a, b, 1.0).dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="bf16 training"):
+        ops.lora_matmul_dx(dy, w0, a, b, 1.0)
+    with pytest.raises(TypeError, match="bf16 training"):
+        ops.lora_matmul_grad_ab(x, xa, dy, xa, 1.0)
+    adapter = {"A": a.float().requires_grad_(True), "B": b.float(),
+               "mask": torch.ones(2)}
+    y = lora_lib.apply_lora(x, w0, adapter, 4.0)
+    with pytest.raises(TypeError, match="bf16 training"):
+        y.sum().backward()
 
 
 def _paged_inputs(seed, bsz, hkv, groups, dh, ps, pages, lengths):
@@ -166,6 +241,12 @@ def test_cpu_tensors_run_the_plain_versions_without_building(monkeypatch):
     torch.testing.assert_close(
         ops.flash_attention(q, kv, kv, q_offset=2),
         flash_mod.flash_attention_plain(q, kv, kv, q_offset=2))
+    w0, a, b = torch.randn(8, 6), torch.randn(8, 3), torch.randn(3, 6)
+    y, xa = ops.lora_matmul(x, w0, a, b, torch.tensor(2.0), return_xa=True)
+    torch.testing.assert_close(y, lora_mod.lora_matmul_plain(x, w0, a, b,
+                                                             2.0))
+    dx, g = ops.lora_matmul_dx(torch.randn(3, 6), w0, a, b, 2.0)
+    ops.lora_matmul_grad_ab(x, xa, torch.randn(3, 6), g, 2.0)
     assert ops.LAUNCHES == before
 
 
@@ -184,6 +265,24 @@ def test_cpu_tensors_run_the_plain_versions_without_building(monkeypatch):
     lambda: ops.flash_attention(torch.randn(1, 4, 2, 8),
                                 torch.randn(1, 6, 2, 8),
                                 torch.randn(1, 6, 2, 8), window=0),
+    # lora_matmul: K mismatch, B's rank, rank 0, rank past the kernel's 64,
+    # a scale of two values, dy's width, xa's rows
+    lambda: ops.lora_matmul(torch.randn(3, 8), torch.randn(7, 5),
+                            torch.randn(7, 2), torch.randn(2, 5), 1.0),
+    lambda: ops.lora_matmul(torch.randn(3, 8), torch.randn(8, 5),
+                            torch.randn(8, 2), torch.randn(3, 5), 1.0),
+    lambda: ops.lora_matmul(torch.randn(3, 8), torch.randn(8, 5),
+                            torch.randn(8, 0), torch.randn(0, 5), 1.0),
+    lambda: ops.lora_matmul(torch.randn(3, 8), torch.randn(8, 5),
+                            torch.randn(8, 65), torch.randn(65, 5), 1.0),
+    lambda: ops.lora_matmul(torch.randn(3, 8), torch.randn(8, 5),
+                            torch.randn(8, 2), torch.randn(2, 5),
+                            torch.ones(2)),
+    lambda: ops.lora_matmul_dx(torch.randn(3, 4), torch.randn(8, 5),
+                               torch.randn(8, 2), torch.randn(2, 5), 1.0),
+    lambda: ops.lora_matmul_grad_ab(torch.randn(3, 8), torch.randn(4, 2),
+                                    torch.randn(3, 5), torch.randn(3, 2),
+                                    1.0),
 ])
 def test_ops_reject_bad_shapes(call):
     with pytest.raises(ValueError):
@@ -207,13 +306,24 @@ def test_kernel_launchers_refuse_cpu_tensors():
         flash_mod.launch(None, torch.randn(1, 2, 2, 8),
                          torch.randn(1, 3, 1, 8), torch.randn(1, 3, 1, 8),
                          causal=True, window=None, q_offset=0)
+    w0, a, b, s = (torch.randn(8, 3), torch.randn(8, 2), torch.randn(2, 3),
+                   torch.tensor(1.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_mod.launch(None, x, w0, a, b, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_mod.launch_dx(None, torch.randn(2, 3), w0, a, b, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        lora_mod.launch_grad_ab(None, x, torch.randn(2, 2),
+                                torch.randn(2, 3), torch.randn(2, 2), s)
 
 
 def test_kernel_sources_and_build_recipe():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["bgmv.cu", "flash_attn.cu", "paged_attn.cu",
-                     "verify.cu"]
+    assert names == ["bgmv.cu", "flash_attn.cu", "lora_matmul.cu",
+                     "paged_attn.cu", "verify.cu"]
     replaced = {"bgmv.cu": "src/repro/kernels/bgmv.py::bgmv",
+                "lora_matmul.cu":
+                    "src/repro/kernels/lora_matmul.py::lora_matmul",
                 "paged_attn.cu":
                     "src/repro/kernels/paged_attn.py::paged_attention",
                 "flash_attn.cu":
