@@ -17,6 +17,9 @@ Phases, each of which raises on failure:
    per row; lora_matmul also at a ragged shape, its backward (dx, dA,
    dB; float32) against autograd through the plain version, and every
    other rank variant built (R 13, 29, 64) forward and backward;
+   recon_agg (float32) batched at the server's shapes on RoBERTa-large
+   (48 items, Kc 4 and 20, d 1024, R 8), ragged, at rank 16 and in the
+   single-item form, with the same bits on a second call;
 4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
@@ -34,12 +37,25 @@ Phases, each of which raises on failure:
    16 x 32 tokens on mrpc, with finite losses, masked rank directions
    bit-unchanged and the lora_matmul kernels' launch counts exact, then
    one ``evaluate`` on 1024 examples and a profiled window of 3 steps;
-7. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+7. server aggregation (Eq. 2-3) of phase 6's trained cohort on the card:
+   ``AggregationEngine`` with hlora ``factored`` (Gram), ``exact`` and
+   ``randomized`` and with ``naive``; Eq. 1's bias per target; at fixed
+   tolerances (stated beside them): (a) the kernel's dW' against the plain
+   version's on the CPU, (b) exact's spectra against factored's and the
+   CPU's, (c) Eckart-Young for every item and client against
+   ``svdvals`` of the kernel's dW', (d) exact's client updates against
+   factored's where the truncation is well separated, (e) randomized on a
+   sub-cohort inside its contract against exact, (f) recon_agg launched
+   exactly once per exact or randomized call and never otherwise, and
+   exact on shape groups of one target over a layer stack against the CPU;
+   each method's time, and exact's split between the kernel and the SVD;
+8. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -483,6 +499,64 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     return rows
 
 
+def check_recon_agg(torch, ops, recon_mod, gen) -> dict:
+    """recon_agg at the server's shapes on RoBERTa-large (48 items: q and v
+    x 24 layers, d 1024, r_max 8) with phase 6's cohort (Kc 4, the main
+    path's shape, whose row this returns) and bench_server.py's (Kc 20);
+    then ragged, in the single-item form and at rank 16. Every output is
+    held to the plain version to 1e-5 of its largest value: float32 sums
+    of Kc·R products in another order."""
+    log("recon_agg (server Eq. 2: 48 items, d 1024, R 8):")
+    why = "float32 sums of Kc*R products in another order"
+    row = None
+
+    def inputs(bt, kc, d_in, r, d_out):
+        a = torch.randn(bt, kc, d_in, r, generator=gen,
+                        device="cuda") / math.sqrt(d_in)
+        b = 0.05 * torch.randn(bt, kc, r, d_out, generator=gen,
+                               device="cuda")
+        eta = torch.rand(bt, kc, generator=gen, device="cuda") + 0.5
+        return a, b, eta
+
+    for kc in (4, 20):
+        a, b, eta = inputs(48, kc, 1024, 8, 1024)
+        got = ops.recon_agg(a, b, eta)
+        err = compare_scaled(f"batched (48, {kc}, 1024, 8) -> 1024", got,
+                             recon_mod.recon_agg_plain(a, b, eta), 1e-5, why)
+        if not torch.equal(ops.recon_agg(a, b, eta), got):
+            raise AssertionError("recon_agg: the same inputs gave other bits")
+        ms = time_ms(lambda: ops.recon_agg(a, b, eta))
+        plain_ms = time_ms(lambda: recon_mod.recon_agg_plain(a, b, eta))
+        # the library call: one torch.bmm on the factors pre-folded into
+        # P (48, 1024, Kc*R) and Q (48, Kc*R, 1024)
+        p = (a * eta[..., None, None]).permute(0, 2, 1, 3).reshape(
+            48, 1024, kc * 8).contiguous()
+        q = b.reshape(48, kc * 8, 1024).contiguous()
+        library_ms = time_ms(lambda: torch.bmm(p, q))
+        bd = bound(nbytes(a, b, eta, got), 2 * 48 * kc * 1024 * 1024 * 8,
+                   torch.float32)
+        log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} (torch.bmm of the pre-folded P, Q) bound_ms "
+            f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
+        if kc == 4:
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **bd}
+    for label, shape in (("ragged", (3, 5, 1000, 6, 1000)),
+                         ("ragged rank 16", (2, 3, 777, 16, 515)),
+                         ("rank 16", (48, 4, 1024, 16, 1024))):
+        a, b, eta = inputs(*shape)
+        compare_scaled(f"{label} {shape[:4]} -> {shape[4]}",
+                       ops.recon_agg(a, b, eta),
+                       recon_mod.recon_agg_plain(a, b, eta), 1e-5, why)
+    a, b, eta = inputs(1, 5, 1000, 6, 1000)
+    single = ops.recon_agg(a[0], b[0], eta[0])
+    if single.shape != (1000, 1000):
+        raise AssertionError(f"single-item form gave {tuple(single.shape)}")
+    compare_scaled("single item (5, 1000, 6) -> 1000", single,
+                   recon_mod.recon_agg_plain(a, b, eta)[0], 1e-5, why)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine on full-width Gemma-2B
 # ---------------------------------------------------------------------------
@@ -568,7 +642,8 @@ def run_engine(torch, np) -> dict:
               "paged_verify_attention": 0,     # plain decode: no verify
               # the engine's adapters go through BGMV, not apply_lora
               "lora_matmul": 0, "lora_matmul_dx": 0,
-              "lora_matmul_grad_ab": 0}
+              "lora_matmul_grad_ab": 0,
+              "recon_agg": 0}                  # server aggregation only
     for name in ("bgmv", "paged_attention", "flash_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
@@ -747,7 +822,8 @@ def run_spec(torch, ctx) -> dict:
         chunks = engine.prefill_calls
         expect = {"paged_verify_attention": layers * st["dispatches"],
                   "flash_attention": layers * chunks, "lora_matmul": 0,
-                  "lora_matmul_dx": 0, "lora_matmul_grad_ab": 0}
+                  "lora_matmul_dx": 0, "lora_matmul_grad_ab": 0,
+                  "recon_agg": 0}
         if isinstance(drafter, SelfDrafter):
             # draft steps: 2 layers each, 4 LoRA'd projections per layer
             draft = launches["paged_attention"]
@@ -801,8 +877,10 @@ def rel_err(got, want) -> float:
                  / torch.linalg.vector_norm(want.double()))
 
 
-def run_training(torch, np) -> dict:
-    """Phase 6. Returns the lora kernels' launches in the cohort call."""
+def run_training(torch, np) -> tuple:
+    """Phase 6. Returns the lora kernels' launches in the cohort call and
+    the trained cohort on the card (config, factors, masks, shard sizes),
+    which phase 7 aggregates."""
     from repro_torch.configs import get_config
     from repro_torch.core.lora import make_rank_mask
     from repro_torch.data import dirichlet_partition, make_pair_classification
@@ -990,13 +1068,354 @@ def run_training(torch, np) -> dict:
         frozen["card"], tree_map(lambda t: t[0], trainable),
         tree_map(lambda t: t[0], cmasks),
         {k: v[0, :3] for k, v in data.items()}), group=train_group)
-    return launches
+    return launches, {"cfg": cfg, "factors": trained["factors"],
+                      "masks": cmasks, "shards": [len(x) for x in shards]}
 
 
 def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         return [p for k, v in tree.items() for p in _paths(v, prefix + (k,))]
     return [prefix]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: server aggregation on full-width RoBERTa-large
+# ---------------------------------------------------------------------------
+
+# Phase 7's tolerances, fixed before the run; float32 throughout. Each limit
+# scales with a size of the item it is applied to, none with a spectral gap.
+# (a) the kernel's dW' against the plain version's on the CPU from the same
+#     inputs, per element, of max|dW'|: float32 sums of Kc*R products in
+#     another order.
+AGG_DW_REL = 1e-5
+# (b) two back-ends' spectra, per singular value, of the item's sigma_1: a
+#     float32 SVD's backward error E moves every sigma by at most ||E||
+#     (Weyl), of order 1e-6 sigma_1 here.
+AGG_SPEC_REL = 1e-4
+# (c) Eckart-Young: | ||dW' - eff_k||_F - sqrt(sum_{i>r_k} sigma_i^2) | of
+#     the item's ||dW'||_F. eff_k is client k's effective update s'_k
+#     (A'_k m_k)(B'_k m_k); this holds whatever the factors' signs and basis
+#     and whatever the gap, and a missing or extra direction breaks it by
+#     sigma_{r_k}^2-sized terms.
+AGG_EY_REL = 1e-4
+# (d) two back-ends' eff_k, normwise, held only where the rank-r_k
+#     truncation is well separated, (sigma_{r_k} - sigma_{r_k+1}) / sigma_1
+#     >= AGG_GAP_MIN: there E turns the truncation by at most ||E|| / gap
+#     (Davis-Kahan), ~1e-4, while a wrong direction moves eff_k by at least
+#     sigma_{r_k} >= 1e-2 sigma_1, over 3.5e-3 of ||eff_k|| (r_k <= 8).
+AGG_UPD_REL = 1e-3
+AGG_GAP_MIN = 1e-2
+AGG_REPS = 3
+# svd_randomized's contract: exact when rank(dW') <= r + oversample, which
+# holds when the cohort's ranks sum to at most r_max + oversample
+AGG_OVERSAMPLE = 8
+
+def dense_inputs(torch, cohort, eta, alpha) -> tuple:
+    """The dense reconstruction's inputs, built here independently of the
+    engine, with its items in the engine's order (targets sorted, then
+    layers): masked factors a (N, K, d_in, r) and b (N, K, r, d_out), and
+    the coefficients eta_k / sum(eta) * alpha / r_k (N, K)."""
+    etan = eta / eta.sum()
+    a, b, coef = [], [], []
+    for t in sorted(cohort):
+        ad = cohort[t]                                  # (K, L, ...)
+        m = ad["mask"]
+        a.append((ad["A"] * m[..., None, :]).transpose(0, 1))
+        b.append((ad["B"] * m[..., :, None]).transpose(0, 1))
+        coef.append((etan[:, None] * alpha
+                     / torch.clamp(m.sum(-1), min=1.0)).T)
+    return tuple(torch.cat(x).contiguous() for x in (a, b, coef))
+
+
+def item_updates(torch, out, alpha):
+    """eff_k of every item and client of an aggregation's output, (N, K,
+    d_in, d_out) float64, items in the engine's order."""
+    from repro_torch.core.lora import delta_w
+    return torch.cat([delta_w(out[t], alpha).transpose(0, 1).double()
+                      for t in sorted(out)])
+
+
+def item_spectra(torch, spectra):
+    """An aggregation's spectra (N, r_max) float64 on the card."""
+    return torch.cat([spectra[t] for t in sorted(spectra)]).to(
+        "cuda").double()
+
+
+def hold_spectra(label, got, want, sig) -> None:
+    """(b): |got - want| <= AGG_SPEC_REL * sigma_1 per item."""
+    err = float(((got - want).abs() / sig[:, :1]).max())
+    ok = math.isfinite(err) and err <= AGG_SPEC_REL
+    log(f"  {label}: spectra max |diff| / sigma_1 {err:.3e} (tolerance "
+        f"{AGG_SPEC_REL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: spectra disagree")
+
+
+def hold_eckart_young(torch, label, dw, sig, upd, ranks) -> None:
+    """(c) for every item and client: ||dW' - eff_k||_F equals the tail
+    sqrt(sum_{i > r_k} sigma_i^2) to AGG_EY_REL * ||dW'||_F."""
+    norm = torch.linalg.matrix_norm(dw)
+    worst = 0.0
+    for k, r in enumerate(ranks):
+        tail = torch.sqrt((sig[:, r:] ** 2).sum(-1))
+        dist = torch.linalg.matrix_norm(dw - upd[:, k])
+        worst = max(worst, float(((dist - tail).abs() / norm).max()))
+    ok = math.isfinite(worst) and worst <= AGG_EY_REL
+    log(f"  {label}: Eckart-Young over {dw.shape[0]} items x {len(ranks)} "
+        f"clients, | ||dW' - eff_k||_F - sqrt(sum_(i>r_k) sigma_i^2) | / "
+        f"||dW'||_F max {worst:.3e} (tolerance {AGG_EY_REL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: Eckart-Young does not hold")
+
+
+def hold_updates(torch, label, got, want, sig, ranks) -> None:
+    """(d): eff_k of two back-ends, normwise to AGG_UPD_REL, for the (item,
+    client) pairs whose relative gap is at least AGG_GAP_MIN; fails when
+    no pair qualifies, since then nothing was held."""
+    held = skipped = 0
+    worst = 0.0
+    for k, r in enumerate(ranks):
+        sel = (sig[:, r - 1] - sig[:, r]) / sig[:, 0] >= AGG_GAP_MIN
+        n = int(sel.sum())
+        held, skipped = held + n, skipped + sel.numel() - n
+        if n:
+            err = torch.linalg.matrix_norm(got[sel, k] - want[sel, k]) \
+                / torch.linalg.matrix_norm(want[sel, k])
+            worst = max(worst, float(err.max()))
+    ok = held > 0 and math.isfinite(worst) and worst <= AGG_UPD_REL
+    log(f"  {label}: eff_k held on {held} (item, client) pairs with relative "
+        f"gap >= {AGG_GAP_MIN:.0e}, {skipped} skipped for a smaller gap; "
+        f"normwise rel err max {worst:.3e} (tolerance {AGG_UPD_REL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: client updates disagree")
+
+
+def counted_call(torch, ops, label, want, fn) -> tuple:
+    """(f): ``fn()`` with every launch count set to 0 just before and read
+    just after. recon_agg must have launched ``want`` times, no other
+    kernel at all, and every output must be finite. Returns (fn's result,
+    recon_agg's launches)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out, spectra = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    expect = dict({name: 0 for name in launches}, recon_agg=want)
+    finite = all(bool(torch.isfinite(v).all()) for ad in out.values()
+                 for v in ad.values()) and all(
+        bool(torch.isfinite(s).all()) for s in spectra.values())
+    ok = launches == expect and finite
+    log(f"  {label}: first call {wall:.3f} s; recon_agg launches "
+        f"{launches['recon_agg']} (expect {want}), other kernels "
+        f"{sum(launches.values()) - launches['recon_agg']} (expect 0); "
+        f"outputs finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: launches {launches}, finite {finite}")
+    return (out, spectra), launches["recon_agg"]
+
+
+def time_calls(torch, np, label, fn, reps) -> None:
+    """Host time of ``reps`` synchronized calls after the checked (warm)
+    call: p50, min, max."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"  {label}: p50 {np.median(times) * 1e3:.3f} ms over {reps} "
+        f"synchronized call(s) after a warm call (min {min(times) * 1e3:.3f}, "
+        f"max {max(times) * 1e3:.3f})")
+
+
+@contextlib.contextmanager
+def stage_events(torch, module, name, events):
+    """Inside the block, ``module.<name>`` records a CUDA event pair on the
+    current stream around each call, kept in ``events[name]`` (the last
+    call's); the function is put back after the block."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        events[name] = (start, end)
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def hold_single_target_groups(torch, ops, engine, cohort, eta, alpha,
+                              label) -> int:
+    """``exact`` on a tree whose shape groups hold one target each over a
+    layer stack: q at its first 3 layers, and v at those layers with B cut
+    to 256 output columns (q and v of Gemma-2B differ so). Stacking such a
+    group and moving its layer axis in front leaves a strided view, which
+    the kernel does not take. Held: one launch per group, and the spectra
+    against ``exact`` on the CPU to AGG_SPEC_REL * sigma_1. Returns
+    recon_agg's launches."""
+    tree = {"q": {k: v[:, :3] for k, v in cohort["q"].items()},
+            "v": {"A": cohort["v"]["A"][:, :3],
+                  "B": cohort["v"]["B"][:, :3, :, :256],
+                  "mask": cohort["v"]["mask"][:, :3]}}
+    (_, spec), n = counted_call(
+        torch, ops, f"{label} (f) exact, two single-target groups", 2,
+        lambda: engine(tree, eta, alpha, method="exact"))
+    _, spec_cpu = engine({t: {k: v.cpu() for k, v in ad.items()}
+                          for t, ad in tree.items()}, eta.cpu(), alpha,
+                         method="exact")
+    want = item_spectra(torch, spec_cpu)
+    hold_spectra("(b) exact on single-target groups, card against CPU",
+                 item_spectra(torch, spec), want, want)
+    return n
+
+
+def run_aggregation(torch, np, trained) -> int:
+    """Phase 7: ``AggregationEngine`` on phase 6's trained cohort. Returns
+    recon_agg's launches over the counted engine calls."""
+    from repro_torch.core.agg_engine import AggregationEngine
+    from repro_torch.core.aggregate import aggregation_bias
+    from repro_torch.fed import join_adapters
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+
+    def stamp() -> str:
+        return f"[+{time.perf_counter() - t_start:.1f} s]"
+
+    cfg = trained["cfg"]
+    alpha, r_max = cfg.lora.alpha, cfg.lora.r_max
+    cohort = join_adapters(trained["factors"], trained["masks"])
+    eta = torch.tensor(trained["shards"], dtype=torch.float32, device="cuda")
+    ranks = [int(x) for x in cohort[min(cohort)]["mask"][:, 0].sum(-1)]
+    items = len(cohort) * cfg.num_layers
+    log(f"  cohort A shapes "
+        f"{ {t: tuple(ad['A'].shape) for t, ad in cohort.items()} }, ranks "
+        f"{ranks}, eta = shard sizes {trained['shards']}, alpha {alpha}; "
+        f"q and v form one shape group of {items} items")
+    for t in sorted(cohort):
+        bias = float(aggregation_bias(cohort[t], eta, alpha))
+        log(f"  Eq. 1's bias (naive against exact FedAvg), {t}: {bias:.6f}")
+        if not (math.isfinite(bias) and bias > 0):
+            raise AssertionError(f"aggregation bias of {t}: {bias}")
+
+    engine = AggregationEngine()
+    methods = {"factored": dict(method="factored"),
+               "exact": dict(method="exact"),
+               "randomized": dict(method="randomized"),
+               "naive": dict(strategy="naive")}
+    runs, total = {}, 0
+    for label, kw in methods.items():
+        want = 1 if label in ("exact", "randomized") else 0
+        runs[label], n = counted_call(
+            torch, ops, f"{stamp()} (f) {label}", want,
+            lambda: engine(cohort, eta, alpha, **kw))
+        total += n
+
+    # the kernel's dW' and its whole spectrum
+    a, b, coef = dense_inputs(torch, cohort, eta, alpha)
+    dw = ops.recon_agg(a, b, coef)
+    compare_scaled("(a) recon_agg's dW' on the card against the plain "
+                   "version's on the CPU", dw,
+                   ops.recon_agg(a.cpu(), b.cpu(), coef.cpu()).to("cuda"),
+                   AGG_DW_REL, "float32 sums of Kc*R products in another "
+                   "order")
+    sig = torch.linalg.svdvals(dw).double()
+    gaps = torch.stack([(sig[:, r - 1] - sig[:, r]) / sig[:, 0]
+                        for r in ranks])
+    log(f"  {stamp()} svdvals of the kernel's dW' ({tuple(dw.shape)}): "
+        f"relative gap (sigma_(r_k) - sigma_(r_k+1)) / sigma_1 over items "
+        f"and clients min {float(gaps.min()):.3e}, median "
+        f"{float(gaps.median()):.3e}")
+
+    # (b) spectra: exact on the card against factored, and against the CPU
+    spec = {k: item_spectra(torch, runs[k][1]) for k in ("factored",
+                                                         "exact")}
+    hold_spectra("(b) exact against factored, on the card", spec["exact"],
+                 spec["factored"], sig)
+    t0 = time.perf_counter()
+    _, spec_cpu = engine({t: {k: v.cpu() for k, v in ad.items()}
+                          for t, ad in cohort.items()}, eta.cpu(), alpha,
+                         method="exact")
+    hold_spectra(f"(b) exact, card against CPU ({time.perf_counter() - t0:.2f}"
+                 f" s on the CPU)", spec["exact"],
+                 item_spectra(torch, spec_cpu), sig)
+
+    # (c) Eckart-Young and (d) client updates where they are unique
+    dw64 = dw.double()
+    upd = {k: item_updates(torch, runs[k][0], alpha)
+           for k in ("factored", "exact")}
+    for label in ("factored", "exact"):
+        hold_eckart_young(torch, f"(c) {label}", dw64, sig, upd[label], ranks)
+    hold_updates(torch, "(d) exact against factored, on the card",
+                 upd["exact"], upd["factored"], sig, ranks)
+    del upd, dw64
+
+    # (e) randomized on a sub-cohort inside its contract
+    sub_ranks = ranks[:2]
+    if sum(sub_ranks) > r_max + AGG_OVERSAMPLE:
+        raise AssertionError(f"sub-cohort ranks {sub_ranks} exceed the "
+                             f"randomized contract")
+    sub = {t: {k: v[:2] for k, v in ad.items()} for t, ad in cohort.items()}
+    log(f"  (e) sub-cohort: clients 0 and 1, ranks {sub_ranks}, sum "
+        f"{sum(sub_ranks)} <= r_max + oversample = {r_max + AGG_OVERSAMPLE}")
+    sub_runs = {}
+    for label in ("randomized", "exact"):
+        sub_runs[label], n = counted_call(
+            torch, ops, f"{stamp()} (f) sub-cohort {label}", 1,
+            lambda: engine(sub, eta[:2], alpha, method=label))
+        total += n
+    a_s, b_s, coef_s = dense_inputs(torch, sub, eta[:2], alpha)
+    dw_s = ops.recon_agg(a_s, b_s, coef_s)
+    sig_s = torch.linalg.svdvals(dw_s).double()
+    hold_spectra("(e) randomized against exact, sub-cohort",
+                 item_spectra(torch, sub_runs["randomized"][1]),
+                 item_spectra(torch, sub_runs["exact"][1]), sig_s)
+    upd_s = {k: item_updates(torch, sub_runs[k][0], alpha)
+             for k in ("randomized", "exact")}
+    for label in ("randomized", "exact"):
+        hold_eckart_young(torch, f"(e) sub-cohort {label}", dw_s.double(),
+                          sig_s, upd_s[label], sub_ranks)
+    hold_updates(torch, "(e) randomized against exact, sub-cohort",
+                 upd_s["randomized"], upd_s["exact"], sig_s, sub_ranks)
+    del upd_s, sub_runs, runs
+    total += hold_single_target_groups(torch, ops, engine, cohort, eta,
+                                       alpha, stamp())
+
+    # times of the server's call, and where exact's time goes: CUDA events
+    # around the kernel's op and svd_exact inside the one timed exact call
+    from repro_torch.core import svd as svd_lib
+    stages = {}
+    for label, kw in methods.items():
+        def call():
+            return engine(cohort, eta, alpha, **kw)
+
+        if label != "exact":
+            time_calls(torch, np, f"{stamp()} {label}", call, AGG_REPS)
+            continue
+        with stage_events(torch, ops, "recon_agg", stages), \
+                stage_events(torch, svd_lib, "svd_exact", stages):
+            time_calls(torch, np, f"{stamp()} {label}", call, 1)
+    kernel_ms, svd_ms = (stages[k][0].elapsed_time(stages[k][1])
+                         for k in ("recon_agg", "svd_exact"))
+    log(f"  {stamp()} exact's two stages on its {items} items, in the timed "
+        f"call (CUDA events): recon_agg {kernel_ms:.4f} ms, svd_exact "
+        f"(torch.linalg.svd) {svd_ms:.1f} ms: the kernel is "
+        f"{100 * kernel_ms / (kernel_ms + svd_ms):.4f}% of the two")
+    profile_window(torch, "one factored aggregation",
+                   lambda: engine(cohort, eta, alpha))
+    return total
 
 
 def main() -> int:
@@ -1010,6 +1429,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attn as flash_mod
     from repro_torch.kernels import lora_matmul as lora_mod
     from repro_torch.kernels import paged_attn as paged_mod
+    from repro_torch.kernels import recon_agg as recon_mod
     from repro_torch.kernels import verify as verify_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1034,7 +1454,8 @@ def main() -> int:
             "flash_attention": check_flash(torch, ops, flash_mod, gen),
             "paged_verify_attention": check_verify(torch, ops, verify_mod,
                                                    paged_mod, gen),
-            **check_lora_matmul(torch, ops, lora_mod, gen)}
+            **check_lora_matmul(torch, ops, lora_mod, gen),
+            "recon_agg": check_recon_agg(torch, ops, recon_mod, gen)}
     log("[4] engine: full-width gemma-2b")
     ctx = run_engine(torch, np)
     log("[5] speculative decode: full-width gemma-2b, spec_k 4")
@@ -1047,9 +1468,13 @@ def main() -> int:
     gc.collect()                      # the engines hold reference cycles
     torch.cuda.empty_cache()
     log("[6] client training: full-width roberta-large, 4 clients")
-    train_launches = run_training(torch, np)
+    train_launches, trained = run_training(torch, np)
     for name in ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab"):
         launches[name] = train_launches[name]
+    log("[7] server aggregation: full-width roberta-large, phase 6's cohort")
+    t0 = time.perf_counter()
+    launches["recon_agg"] = run_aggregation(torch, np, trained)
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),
@@ -1064,7 +1489,9 @@ def main() -> int:
             **{name: ("src/repro_torch/kernels/csrc/lora_matmul.cu",
                       "src/repro/kernels/lora_matmul.py:51")
                for name in ("lora_matmul", "lora_matmul_dx",
-                            "lora_matmul_grad_ab")}}
+                            "lora_matmul_grad_ab")},
+            "recon_agg": ("src/repro_torch/kernels/csrc/recon_agg.cu",
+                          "src/repro/kernels/recon_agg.py:42")}
     kernels = []
     for name, (source, replaces) in meta.items():
         if launches[name] <= 0:

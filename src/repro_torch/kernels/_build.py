@@ -35,6 +35,7 @@ SIGNATURES: Dict[str, str] = {
     "paged_verify_launch": "ppppppp" + "iiiiiii" + "f" + "i" + "p",
     "lora_matmul_launch": "ppppppp" + "iiiiiii" + "p",
     "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",
+    "recon_agg_launch": "pppp" + "iiiii" + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

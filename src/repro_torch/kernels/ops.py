@@ -20,13 +20,14 @@ from repro_torch.kernels import bgmv as _bgmv
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import lora_matmul as _lora
 from repro_torch.kernels import paged_attn as _paged
+from repro_torch.kernels import recon_agg as _recon
 from repro_torch.kernels import verify as _verify
 
 LAUNCHES: Dict[str, int] = {"bgmv": 0, "paged_attention": 0,
                             "flash_attention": 0,
                             "paged_verify_attention": 0,
                             "lora_matmul": 0, "lora_matmul_dx": 0,
-                            "lora_matmul_grad_ab": 0}
+                            "lora_matmul_grad_ab": 0, "recon_agg": 0}
 
 
 def reset_launches() -> None:
@@ -150,3 +151,21 @@ def lora_matmul_grad_ab(x: torch.Tensor, xa: torch.Tensor, dy: torch.Tensor,
     lib = _build.load()
     LAUNCHES["lora_matmul_grad_ab"] += 1
     return _lora.launch_grad_ab(lib, x, xa, dy, g, scale)
+
+
+def recon_agg(a: torch.Tensor, b: torch.Tensor, eta: torch.Tensor
+              ) -> torch.Tensor:
+    """Server aggregation (Eq. 2): W' = Σ_k η_k A_k B_k, float32. Either
+    one item, a (Kc, d_in, R), b (Kc, R, d_out), eta (Kc,) -> (d_in,
+    d_out), or a batch of items, a (Bt, Kc, d_in, R), b (Bt, Kc, R,
+    d_out), eta (Bt, Kc) -> (Bt, d_in, d_out): one launch for the batch."""
+    single = _recon.validate(a, b, eta)
+    if single:
+        a, b, eta = a[None], b[None], eta[None]
+    if _on_cpu(a, "recon_agg"):
+        w = _recon.recon_agg_plain(a, b, eta)
+    else:
+        lib = _build.load()
+        LAUNCHES["recon_agg"] += 1
+        w = _recon.launch(lib, a, b, eta)
+    return w[0] if single else w

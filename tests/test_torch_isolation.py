@@ -70,7 +70,9 @@ def test_port_modules_mirror_the_reference_layout():
                 "kernels/verify.py", "kernels/lora_matmul.py",
                 "configs/roberta_large.py", "data/synthetic.py",
                 "data/partition.py", "optim/optimizers.py",
-                "optim/schedules.py", "fed/client.py", "fed/simulation.py"):
+                "optim/schedules.py", "fed/client.py", "fed/simulation.py",
+                "kernels/recon_agg.py", "core/svd.py", "core/aggregate.py",
+                "core/agg_engine.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

@@ -320,7 +320,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
 def test_kernel_sources_and_build_recipe():
     names = sorted(p.name for p in _build.sources())
     assert names == ["bgmv.cu", "flash_attn.cu", "lora_matmul.cu",
-                     "paged_attn.cu", "verify.cu"]
+                     "paged_attn.cu", "recon_agg.cu", "verify.cu"]
     replaced = {"bgmv.cu": "src/repro/kernels/bgmv.py::bgmv",
                 "lora_matmul.cu":
                     "src/repro/kernels/lora_matmul.py::lora_matmul",
@@ -328,6 +328,8 @@ def test_kernel_sources_and_build_recipe():
                     "src/repro/kernels/paged_attn.py::paged_attention",
                 "flash_attn.cu":
                     "src/repro/kernels/flash_attn.py::flash_attention",
+                "recon_agg.cu":
+                    "src/repro/kernels/recon_agg.py::recon_agg",
                 "verify.cu":
                     "src/repro/kernels/verify.py::paged_verify_attention"}
     for path in _build.sources():
