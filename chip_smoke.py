@@ -13,7 +13,11 @@ Phases, each of which raises on failure:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    full-width Gemma-2B serving (RoBERTa-large training for lora_matmul)
    gives it, in float32 and bfloat16, with kernel, plain and library
-   times; the verify kernel also against the decode kernel at one token
+   times; flash_attention also with the same bits on a second call, at
+   the last chunk of a 2k-token prompt, and in every other variant built
+   (head dims 64 and 128, element-wise staging, one split without the
+   merge), its library time the faster of two SDPA calls with the kernels
+   each ran; the verify kernel also against the decode kernel at one token
    per row; lora_matmul also at a ragged shape, its backward (dx, dA,
    dB; float32) against autograd through the plain version, and every
    other rank variant built (R 13, 29, 64) forward and backward;
@@ -24,7 +28,8 @@ Phases, each of which raises on failure:
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
    the merged-weight oracle; then one more wave under ``torch.profiler``
-   for the device-busy share of wall time and device time by kernel;
+   for the device-busy share of wall time, device time by kernel, and the
+   flash kernels' device time per prefill chunk;
 5. speculative decode: the same 8 requests through ``ServeEngine(drafter=,
    spec_k=4)`` on phase 4's weights and registry, in four waves (scripted
    forced-accept and forced-reject, n-gram, self-draft), each wave's tokens
@@ -60,6 +65,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -253,11 +259,79 @@ def check_paged(torch, ops, paged_mod, gen) -> dict:
     return row
 
 
-def check_flash(torch, ops, flash_mod, gen) -> dict:
+def kernel_names(torch, fn) -> str:
+    """The CUDA kernels torch.profiler sees for one call of ``fn``, by
+    device time: which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == cuda and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key[:100] for e in events[:3]) or "none seen"
+
+
+def time_flash(torch, ops, flash_mod, q, k, v, kw, err) -> dict:
+    """Kernel, plain and library times of one flash call, its bound, and
+    the split plan. The library time is the faster of two SDPA calls:
+    enable_gqa with the boolean mask, and K/V expanded to H heads outside
+    the timed call (as recon_agg's P, Q are pre-folded); each call's
+    backend is printed."""
     import torch.nn.functional as F
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: flash_mod.flash_attention_plain(q, k, v,
+                                                               **kw))
+    vis = flash_mod.visibility(kw["q_offset"], sq, skv, b, True,
+                               kw["window"], q.device)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    ke = kt.repeat_interleave(h // hkv, dim=1).contiguous()
+    ve = vt.repeat_interleave(h // hkv, dim=1).contiguous()
+    mask = vis[:, None]
+    calls = {"enable_gqa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, enable_gqa=True),
+             "K/V expanded": lambda: F.scaled_dot_product_attention(
+                 qt, ke, ve, attn_mask=mask)}
+    lib_ms = {}
+    for name, fn in calls.items():
+        lib_ms[name] = time_ms(fn)
+        log(f"    SDPA ({name}, boolean mask): {lib_ms[name]:.4f} ms; "
+            f"kernels: {kernel_names(torch, fn)}")
+    library_ms = min(lib_ms.values())
+    plan = flash_mod.plan_splits(b, sq, skv, h, hkv, causal=True,
+                                 window=kw["window"],
+                                 q_offset=kw["q_offset"],
+                                 target_blocks=torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+    keys = int(vis.any(1).sum())
+    moved = 2 * nbytes(q) + 2 * keys * hkv * d * q.element_size()
+    bd = bound(moved, 4 * int(vis.sum()) * h * d, q.dtype)
+    log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (the faster SDPA call) bound_ms "
+        f"{bd['bound_ms']:.5f} ({bd['bound_by']}); plan: keys "
+        f"[{plan.kbeg}, {plan.kend}) in {plan.n_splits} splits of "
+        f"{plan.split_len}, {plan.blocks} blocks")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bd}
+
+
+def check_flash(torch, ops, flash_mod, gen) -> dict:
     log("flash_attention (prefill chunk: Sq=64, H=8, Hkv=1, D=256, "
         "Skv=208 gathered pages):")
     row = None
+
+    def same_bits(got, kw, q, k, v):
+        if not torch.equal(ops.flash_attention(q, k, v, **kw), got):
+            raise AssertionError("flash_attention: the same inputs gave "
+                                 "other bits")
+
     cases = [("chunk q_offset=128", 1, 128, None),
              ("chunk q_offset=128 window=48", 1, 128, 48),
              ("per-row q_offset=(0, 100)", 2, None, None)]
@@ -275,28 +349,55 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
             want = flash_mod.flash_attention_plain(q, k, v, **kw)
             got = ops.flash_attention(q, k, v, **kw)
             err = compare(f"{dtype} {label}", got, want)
-            if dtype != torch.float32 or label != cases[0][0]:
-                continue
-            ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
-            plain_ms = time_ms(lambda: flash_mod.flash_attention_plain(
-                q, k, v, **kw))
-            vis = flash_mod.visibility(q_offset, 64, 208, b, True, window,
-                                       q.device)
-            qt = q.transpose(1, 2).contiguous()
-            kt = k.transpose(1, 2).contiguous()
-            vt = v.transpose(1, 2).contiguous()
-            mask = vis[:, None]
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            keys = int(vis.any(1).sum())
-            moved = 2 * nbytes(q) + 2 * keys * 256 * q.element_size()
-            bd = bound(moved, 4 * int(vis.sum()) * 8 * 256, dtype)
-            log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                f"{library_ms:.4f} (scaled_dot_product_attention, boolean "
-                f"mask, enable_gqa) bound_ms {bd['bound_ms']:.5f} "
-                f"({bd['bound_by']})")
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, **bd}
+            same_bits(got, kw, q, k, v)
+            if dtype == torch.float32 and label == cases[0][0]:
+                row = time_flash(torch, ops, flash_mod, q, k, v, kw, err)
+    log("  the same bits on a second call: every case above")
+
+    log("flash_attention (long prompt, its last chunk: Sq=64, H=8, Hkv=1, "
+        "D=256, Skv=2048, q_offset 1984):")
+    q = torch.randn(1, 64, 8, 256, generator=gen, device="cuda")
+    k = torch.randn(1, 2048, 1, 256, generator=gen, device="cuda")
+    v = torch.randn(1, 2048, 1, 256, generator=gen, device="cuda")
+    kw = dict(causal=True, window=None, q_offset=1984)
+    got = ops.flash_attention(q, k, v, **kw)
+    err = compare("torch.float32 long prompt", got,
+                  flash_mod.flash_attention_plain(q, k, v, **kw))
+    same_bits(got, kw, q, k, v)
+    time_flash(torch, ops, flash_mod, q, k, v, kw, err)
+
+    # every other variant the source builds: the head-dim templates 128
+    # and 64, element-wise staging (D not a multiple of the 16-byte
+    # vector), and the one-split path that writes the output without the
+    # merge
+    log("flash_attention, the other variants built:")
+    for label, (b, sq, h, hkv, d, skv, off, window) in (
+            ("D 128, Hkv 2, per-row offsets (5, 250)",
+             (2, 37, 8, 2, 128, 300, (5, 250), None)),
+            ("D 64, G 3, offset 40, window 20",
+             (1, 50, 3, 1, 64, 90, 40, 20)),
+            ("D 30 (template 64, element-wise staging), G 2, suffix",
+             (1, 9, 4, 2, 30, 40, None, None)),
+            ("one split (no merge): Sq 600, G 8, Skv 32, offset 0",
+             (1, 600, 8, 1, 256, 32, 0, None))):
+        if isinstance(off, tuple):
+            off = torch.tensor(off, dtype=torch.int32, device="cuda")
+        kw = dict(causal=True, window=window, q_offset=off)
+        plan = flash_mod.plan_splits(
+            b, sq, skv, h, hkv, causal=True, window=window, q_offset=off,
+            target_blocks=torch.cuda.get_device_properties(
+                0).multi_processor_count)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, sq, h, d, generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn(b, skv, hkv, d, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(b, skv, hkv, d, generator=gen,
+                            device="cuda").to(dtype)
+            got = ops.flash_attention(q, k, v, **kw)
+            compare(f"{dtype} {label} ({plan.n_splits} splits)", got,
+                    flash_mod.flash_attention_plain(q, k, v, **kw))
+            same_bits(got, kw, q, k, v)
     return row
 
 
@@ -697,14 +798,21 @@ def profile_engine(torch, engine, prompts, n_adapters,
     of the wall time and device time by kernel."""
     for i, p in enumerate(prompts):
         engine.submit(p, f"client{i % n_adapters}", max_new_tokens=8)
-    steps0 = engine.steps
-    profile_window(torch, "admission + prefill", engine.step_batch)
+    steps0, chunks0 = engine.steps, engine.prefill_calls
+    events = profile_window(torch, "admission + prefill", engine.step_batch)
+    chunks = engine.prefill_calls - chunks0
+    flash = [(ms, n) for key, ms, n in events if "flash_" in key]
+    flash_ms = sum(ms for ms, _ in flash)
+    log(f"  flash kernels in that window: {flash_ms:.3f} ms of device time, "
+        f"{sum(n for _, n in flash)} launches, over {chunks} prefill chunks: "
+        f"{flash_ms / max(chunks, 1):.4f} ms per chunk")
     profile_window(torch, step, engine.run)
     log(f"  ({step} window: {engine.steps - steps0 - 1} steps)")
 
 
 SERVE_GROUPS = {"port kernels": ("bgmv_kernel", "paged_attn_kernel",
-                                  "flash_attn_kernel", "paged_verify_kernel"),
+                                  "flash_split_kernel", "flash_merge_kernel",
+                                  "paged_verify_kernel"),
                 "GEMM/GEMV": ("gemm", "gemv", "Gemv", "Gemm")}
 
 
@@ -727,7 +835,7 @@ def train_group(key: str) -> str:
                  if any(k in key for k in keys)), "other")
 
 
-def profile_window(torch, label, fn, group=serve_group) -> None:
+def profile_window(torch, label, fn, group=serve_group) -> list:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -752,6 +860,7 @@ def profile_window(torch, label, fn, group=serve_group) -> None:
     for e in events[:10]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
 
 
 # ---------------------------------------------------------------------------
@@ -1443,8 +1552,15 @@ def main() -> int:
     _build.load()
     log(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
+    entry = ""
     for line in str(_build.build_info.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry" in line:
+            # the kernel's name and its mangled template arguments
+            m = re.search(r"\d+([A-Za-z_]+_kernel)(I.*?E)?E", line)
+            entry = "".join(g for g in m.groups() if g) if m else ""
+        elif "registers" in line or "spill" in line:
+            log(f"    {entry}: {line.strip()}")
+        elif line.startswith("=="):
             log("    " + line.strip())
 
     log("[3] kernels against their plain versions")

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES: Dict[str, str] = {
     "bgmv_launch": "ppppp" + "iiiiii" + "p",
     "paged_attn_launch": "pppppp" + "iiiiii" + "f" + "i" + "p",
-    "flash_attn_launch": "ppppip" + "iiiiiiii" + "f" + "i" + "p",
+    "flash_attn_launch": "ppppipp" + "iiiiiiii" + "iiii" + "f" + "i" + "p",
     "paged_verify_launch": "ppppppp" + "iiiiiii" + "f" + "i" + "p",
     "lora_matmul_launch": "ppppppp" + "iiiiiii" + "p",
     "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",

@@ -16,8 +16,9 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_RANK = 64
-MAX_ITEMS = 65535            # the kernel's grid z axis
-MAX_ROWS = 65535 * 64        # its grid y axis covers 64 rows per block
+MAX_ITEMS = 2**31 - 1        # int arguments; persistent blocks walk the
+MAX_ROWS = 2**31 - 1         # tiles with a 64-bit index
+MAX_DEPTH = 2**22 - 1        # Kc*R: the kernel divides by R in float32
 
 
 def validate(a, b, eta) -> bool:
@@ -64,6 +65,9 @@ def launch(lib, a: torch.Tensor, b: torch.Tensor, eta: torch.Tensor
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"recon_agg kernel supports ranks 1..{MAX_RANK}, "
                          f"got {r}")
+    if kc * r > MAX_DEPTH:
+        raise ValueError(f"recon_agg kernel supports Kc*R <= {MAX_DEPTH}, "
+                         f"got {kc}*{r}")
     if bt > MAX_ITEMS or d_in > MAX_ROWS:
         raise ValueError(f"recon_agg kernel supports at most {MAX_ITEMS} "
                          f"items of {MAX_ROWS} rows, got {bt} of {d_in}")

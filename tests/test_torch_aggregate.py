@@ -258,6 +258,10 @@ def _batch(r=4, dtype=torch.float32):
      "float32"),                                             # eta float64
     (_batch(r=0), ValueError, "ranks 1..64"),                # rank 0
     (_batch(r=65), ValueError, "ranks 1..64"),               # rank above 64
+    ((torch.zeros(1, 1, 1, 64).expand(1, 65536, 1, 64),
+      torch.zeros(1, 1, 64, 1).expand(1, 65536, 64, 1),
+      torch.zeros(1, 1).expand(1, 65536)),
+     ValueError, "Kc\\*R"),                                  # Kc*R >= 2**22
 ])
 def test_recon_agg_launcher_refuses_what_the_kernel_does_not_take(args, err,
                                                                    match):

@@ -225,6 +225,116 @@ def test_flash_attention_all_masked_queries_give_zeros():
     assert torch.count_nonzero(part[0, 2:]) == 0    # pos 7, 8 see none
 
 
+# The split plan of the CUDA flash kernel and the plain versions of its two
+# passes (split partials, merge). Cases: (B, Sq, Skv, H, Hkv, q_offset,
+# window); a tuple offset is one per row (a tensor).
+PLAN_CASES = [
+    (1, 64, 208, 8, 1, 128, None),        # the engine's prefill chunk
+    (1, 64, 2048, 8, 1, 1984, None),      # the last chunk of a 2k prompt
+    (1, 64, 208, 8, 1, 128, 48),          # with a window
+    (2, 64, 208, 8, 1, (0, 100), None),   # per-row offsets
+    (2, 13, 77, 6, 2, (3, 40), 9),        # ragged, per-row, window
+    (1, 7, 50, 4, 4, None, None),         # suffix, ragged
+    (2, 5, 33, 3, 1, None, 4),            # suffix, window
+    (1, 600, 600, 8, 1, None, None),      # rows alone fill the card
+    (1, 6, 20, 2, 1, -3, None),           # queries 0..2 see no key
+    (2, 3, 9, 2, 1, 40, None),            # offset past the keys
+]
+
+
+def _offset(q_offset):
+    return (torch.tensor(q_offset, dtype=torch.int32)
+            if isinstance(q_offset, tuple) else q_offset)
+
+
+@pytest.mark.parametrize("target", [132, 8])
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_split_plan_covers_each_visible_key_once(case, target):
+    b, sq, skv, h, hkv, q_offset, window = case
+    off = _offset(q_offset)
+    plan = flash_mod.plan_splits(b, sq, skv, h, hkv, causal=True,
+                                 window=window, q_offset=off,
+                                 target_blocks=target)
+    assert plan.n_splits >= 1 and plan.blocks >= 1   # never an empty grid
+    assert plan.row_blocks == b * hkv * -(-sq * (h // hkv)
+                                          // flash_mod.ROWS_PER_BLOCK)
+    bounds = plan.bounds()
+    assert all(0 <= lo < hi <= skv for lo, hi in bounds) or \
+        bounds == [(plan.kbeg, plan.kend)]
+    count = torch.zeros(skv, dtype=torch.long)
+    for lo, hi in bounds:
+        count[lo:hi] += 1
+    vis = flash_mod.visibility(off, sq, skv, b, True, window, "cpu")
+    seen = vis.any(0).any(0)
+    assert bool((count[seen] == 1).all())            # each exactly once
+    assert int(count.max()) <= 1
+    if isinstance(off, torch.Tensor):                # no device read
+        assert (plan.kbeg, plan.kend) == (0, skv)
+    else:                                            # the visible range only
+        assert not bool(seen[:plan.kbeg].any()) and \
+            not bool(seen[plan.kend:].any())
+    tiles = -(-(plan.kend - plan.kbeg) // flash_mod.KEY_TILE)
+    if plan.row_blocks * tiles >= target:            # when the work allows
+        assert plan.blocks >= target
+    else:
+        assert plan.n_splits == max(tiles, 1)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_flash_merge_plain_of_the_plan_equals_plain_attention(case):
+    b, sq, skv, h, hkv, q_offset, window = case
+    off = _offset(q_offset)
+    rng = np.random.default_rng(sq * 1000 + skv)
+    q, k, v = (_t(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ((b, sq, h, 8), (b, skv, hkv, 8),
+                             (b, skv, hkv, 8)))
+    plan = flash_mod.plan_splits(b, sq, skv, h, hkv, causal=True,
+                                 window=window, q_offset=off)
+    kw = dict(causal=True, window=window, q_offset=off)
+    m, l, o = flash_mod.flash_partials_plain(q, k, v, plan.bounds(), **kw)
+    got = flash_mod.merge_partials_plain(m, l, o, torch.float32)
+    torch.testing.assert_close(
+        got, flash_mod.flash_attention_plain(q, k, v, **kw), rtol=0,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("bounds", [
+    [(0, 24)],                               # one split
+    [(0, 5), (5, 6), (6, 24)],               # uneven
+    [(0, 7), (7, 7), (7, 16), (16, 24)],     # an empty split
+    [(0, 3), (3, 12), (12, 20), (20, 24)],   # splits past every frontier
+    [(i, i + 1) for i in range(24)],         # one key each
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_merge_plain_equals_plain_attention_any_splits(bounds, dtype):
+    """Merging the partials of arbitrary key splits gives the plain
+    attention within 1e-6 (float32 sums in another order); queries that
+    see no key (offset -4: queries 0..3; window 3 with per-row offsets)
+    give exact zeros; bf16 rounds the merged float32 result once."""
+    rng = np.random.default_rng(len(bounds))
+    b, sq, h, hkv, d, skv = 2, 10, 4, 2, 16, 24
+    q, k, v = (_t(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+               for shape in ((b, sq, h, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
+    for kw in (dict(causal=True, window=None, q_offset=-4),
+               dict(causal=True, window=3,
+                    q_offset=torch.tensor([-2, 9], dtype=torch.int32)),
+               dict(causal=True, window=None, q_offset=None)):
+        m, l, o = flash_mod.flash_partials_plain(q, k, v, bounds, **kw)
+        got = flash_mod.merge_partials_plain(m, l, o, dtype)
+        want = flash_mod.flash_attention_plain(q, k, v, **kw)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        else:   # one bf16 ulp of each element
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+        vis = flash_mod.visibility(kw["q_offset"], sq, skv, b, True,
+                                   kw["window"], "cpu").any(-1)
+        assert bool((~vis).any()) or kw["q_offset"] is None
+        assert torch.count_nonzero(got[~vis]) == 0
+
+
 def test_cpu_tensors_run_the_plain_versions_without_building(monkeypatch):
     def no_build():
         raise AssertionError("a CPU call must not build or load kernels")
@@ -305,6 +415,10 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_mod.launch(None, torch.randn(1, 2, 2, 8),
                          torch.randn(1, 3, 1, 8), torch.randn(1, 3, 1, 8),
+                         causal=True, window=None, q_offset=0)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        flash_mod.launch(None, torch.randn(1, 2, 2, 260),
+                         torch.randn(1, 3, 1, 260), torch.randn(1, 3, 1, 260),
                          causal=True, window=None, q_offset=0)
     w0, a, b, s = (torch.randn(8, 3), torch.randn(8, 2), torch.randn(2, 3),
                    torch.tensor(1.0))
