@@ -17,8 +17,11 @@ Phases, each of which raises on failure:
    the last chunk of a 2k-token prompt, and in every other variant built
    (head dims 64 and 128, element-wise staging, one split without the
    merge), its library time the faster of two SDPA calls with the kernels
-   each ran; the verify kernel also against the decode kernel at one token
-   per row; lora_matmul also at a ragged shape, its backward (dx, dA,
+   each ran; the paged decode and verify kernels with the same bits on a
+   second call at the engine's shape, minitron-4b's GQA heads, 2048
+   positions and every other variant built, each with its split plan and
+   registers, the verify kernel also against the decode kernel at one
+   token per row; lora_matmul also at a ragged shape, its backward (dx, dA,
    dB; float32) against autograd through the plain version, and every
    other rank variant built (R 13, 29, 64) forward and backward;
    recon_agg (float32) batched at the server's shapes on RoBERTa-large
@@ -222,40 +225,138 @@ def check_bgmv(torch, ops, bgmv_mod, gen) -> dict:
     return row
 
 
+# Phase 3's paged shapes: (label, B, Hkv, G, Dh, page_size, P, decode
+# lengths, verify q_offsets, verify windows). The engine's pool (8 rows x 13
+# pages of 16, max_seq 208) and a spec_k = 4 window (ragged offsets, 1..5
+# valid tokens, row 0 inactive); minitron-4b's GQA heads (G 3, not a power
+# of two); 2048 positions a row, which the plan splits into runs of pages.
+PAGED_SHAPES = [
+    ("engine: Gemma-2B", 8, 1, 8, 256, 16, 13,
+     (0, 1, 16, 17, 77, 150, 177, 208),
+     (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
+    ("minitron-4b GQA", 8, 8, 3, 128, 16, 13,
+     (0, 1, 16, 17, 77, 150, 177, 208),
+     (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
+    ("long context", 8, 1, 8, 256, 16, 128,
+     (0, 1, 300, 777, 1024, 1500, 2047, 2048),
+     (0, 290, 777, 1019, 1500, 2000, 2043, 2043), (0, 5, 5, 5, 3, 1, 5, 5)),
+]
+# The other instantiations the paged sources build: the head-dim template
+# 64 (and element-wise staging, Dh not a multiple of the 16-byte vector),
+# and one split, which writes the output without the merge.
+PAGED_VARIANTS = [
+    ("Dh 64, Hkv 2, G 2, pages of 8", 3, 2, 2, 64, 8, 5,
+     (0, 9, 40), (0, 4, 35), (0, 5, 5)),
+    ("Dh 30 (template 64, element-wise staging), G 4", 3, 1, 4, 30, 16, 4,
+     (0, 33, 64), (0, 28, 59), (0, 5, 5)),
+    ("one page a row (one split, no merge)", 4, 1, 8, 256, 16, 1,
+     (0, 1, 9, 16), (0, 0, 4, 11), (0, 1, 5, 5)),
+]
+
+
+def ptxas_lines() -> list:
+    """(entry, line) for each register and spill line of this run's build
+    log, the entry named by its kernel and mangled template arguments
+    (empty when the library was built by an earlier run)."""
+    from repro_torch.kernels import _build
+    out, entry = [], ""
+    for line in str(_build.build_info.get("log", "")).splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"\d+([A-Za-z_]+_kernel)(I.*?E)?E", line)
+            entry = "".join(g for g in m.groups() if g) if m else ""
+        elif "registers" in line or "spill" in line:
+            out.append((entry, line.strip()))
+    return out
+
+
+def paged_plan_line(torch, paged_mod, kernel, b, sq, h, hkv, p, ps, dh,
+                    dtype) -> str:
+    """The plan of one paged call and its split and merge kernels'
+    registers and spills (ptxas)."""
+    plan = paged_mod.plan_page_splits(
+        b, sq, h, hkv, p, ps,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    kdim = 64 if dh <= 64 else 128 if dh <= 128 else 256
+    tname = "If" if dtype == torch.float32 else "bfloat16"
+    lines = ptxas_lines()
+    split = [ln for e, ln in lines if e.startswith(kernel + "I")
+             and tname in e and f"Li{kdim}E" in e]
+    merge = [ln for e, ln in lines
+             if e.startswith(kernel.replace("_kernel", "_merge_kernel") + "I")
+             and tname in e]
+    missing = "not in this run's build log"
+    used = f"; merge: {' / '.join(merge) or missing}" \
+        if plan.n_splits > 1 else " (one split: no merge)"
+    return (f"plan: {plan.n_splits} splits of {plan.pages_per_split} pages, "
+            f"{plan.blocks} blocks ({plan.row_blocks} row blocks); "
+            f"{kernel} ({str(dtype)[6:]}, Dh template {kdim}): "
+            f"{' / '.join(split) or missing}{used}")
+
+
+def paged_inputs(torch, gen, b, hkv, dh, ps, p, dtype):
+    """K/V pools of b * p pages (plus the trash page) and a random page
+    table over them."""
+    n_pool = b * p
+    tables = torch.randperm(n_pool, generator=gen, device="cuda").reshape(
+        b, p).to(torch.int32).contiguous()
+    kp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
+                     device="cuda").to(dtype)
+    return kp, vp, tables
+
+
+def same_bits(name, got, fn):
+    """A second call on the same inputs must give the same bits."""
+    import torch
+    if not torch.equal(fn(), got):
+        raise AssertionError(f"{name}: the same inputs gave other bits")
+
+
 def check_paged(torch, ops, paged_mod, gen) -> dict:
-    log("paged_attention (decode: B=8, Hkv=1, G=8, Dh=256, page 16):")
+    """The decode kernel against its plain version at PAGED_SHAPES and
+    PAGED_VARIANTS, float32 and bf16, each case twice for the same bits,
+    length-0 rows exact zeros; timed at the shapes of 13 or more pages."""
+    log("paged_attention (decode, one token a row; split over runs of pages, "
+        "then merged):")
     row = None
-    # the engine phase's pool: 8 rows x 13 pages of 16 (max_seq 208)
-    b, hkv, g, dh, ps, p, n_pool = 8, 1, 8, 256, 16, 13, 104
-    lengths = torch.tensor([0, 1, 16, 17, 77, 150, 177, 208],
-                           dtype=torch.int32, device="cuda")
-    perm = torch.randperm(n_pool, generator=gen, device="cuda")
-    tables = perm[:b * p].reshape(b, p).to(torch.int32).contiguous()
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, hkv * g, dh, generator=gen, device="cuda").to(dtype)
-        kp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
-                         device="cuda").to(dtype)
-        vp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
-                         device="cuda").to(dtype)
-        want = paged_mod.paged_attention_plain(q, kp, vp, tables, lengths)
-        got = ops.paged_attention(q, kp, vp, tables, lengths, page_size=ps)
-        err = compare(f"{dtype} lengths={lengths.tolist()}", got, want)
-        if bool((got[0] != 0).any()):
-            raise AssertionError("a length-0 row must give exact zeros")
-        ms = time_ms(lambda: ops.paged_attention(q, kp, vp, tables, lengths,
-                                                 page_size=ps))
-        plain_ms = time_ms(lambda: paged_mod.paged_attention_plain(
-            q, kp, vp, tables, lengths))
-        tokens = int(lengths.sum())
-        moved = (2 * nbytes(q) + nbytes(tables, lengths)
-                 + 2 * tokens * hkv * dh * q.element_size())
-        bd = bound(moved, 4 * tokens * hkv * g * dh, dtype)
-        log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-            f"(no single PyTorch call reads through page tables) bound_ms "
-            f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
-        if dtype == torch.float32:
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, **bd}
+    for label, b, hkv, g, dh, ps, p, lens, _, _ in PAGED_SHAPES \
+            + PAGED_VARIANTS:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        log(f"  {label}: B={b}, Hkv={hkv}, G={g}, Dh={dh}, {p} pages of "
+            f"{ps}, lengths={list(lens)}")
+        for dtype in (torch.float32, torch.bfloat16):
+            kp, vp, tables = paged_inputs(torch, gen, b, hkv, dh, ps, p,
+                                          dtype)
+            q = torch.randn(b, hkv * g, dh, generator=gen,
+                            device="cuda").to(dtype)
+            call = lambda: ops.paged_attention(q, kp, vp, tables, lengths,
+                                               page_size=ps)
+            want = paged_mod.paged_attention_plain(q, kp, vp, tables, lengths)
+            got = call()
+            err = compare(f"{dtype}", got, want)
+            same_bits(f"paged_attention {label}", got, call)
+            if bool((got[lengths == 0] != 0).any()):
+                raise AssertionError("a length-0 row must give exact zeros")
+            log("    " + paged_plan_line(torch, paged_mod, "paged_attn_kernel",
+                                         b, 1, hkv * g, hkv, p, ps, dh,
+                                         dtype))
+            if dtype != torch.float32 or p < 13:
+                continue
+            ms = time_ms(call)
+            plain_ms = time_ms(lambda: paged_mod.paged_attention_plain(
+                q, kp, vp, tables, lengths))
+            tokens = int(lengths.sum())
+            moved = (2 * nbytes(q) + nbytes(tables, lengths)
+                     + 2 * tokens * hkv * dh * q.element_size())
+            bd = bound(moved, 4 * tokens * hkv * g * dh, dtype)
+            log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
+                f"(no single PyTorch call reads through page tables) "
+                f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
+            if row is None:
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None, **bd}
+    log("  the same bits on a second call: every case above")
     return row
 
 
@@ -327,10 +428,8 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
         "Skv=208 gathered pages):")
     row = None
 
-    def same_bits(got, kw, q, k, v):
-        if not torch.equal(ops.flash_attention(q, k, v, **kw), got):
-            raise AssertionError("flash_attention: the same inputs gave "
-                                 "other bits")
+    def again(kw, q, k, v):
+        return lambda: ops.flash_attention(q, k, v, **kw)
 
     cases = [("chunk q_offset=128", 1, 128, None),
              ("chunk q_offset=128 window=48", 1, 128, 48),
@@ -349,7 +448,7 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
             want = flash_mod.flash_attention_plain(q, k, v, **kw)
             got = ops.flash_attention(q, k, v, **kw)
             err = compare(f"{dtype} {label}", got, want)
-            same_bits(got, kw, q, k, v)
+            same_bits("flash_attention", got, again(kw, q, k, v))
             if dtype == torch.float32 and label == cases[0][0]:
                 row = time_flash(torch, ops, flash_mod, q, k, v, kw, err)
     log("  the same bits on a second call: every case above")
@@ -363,7 +462,7 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
     got = ops.flash_attention(q, k, v, **kw)
     err = compare("torch.float32 long prompt", got,
                   flash_mod.flash_attention_plain(q, k, v, **kw))
-    same_bits(got, kw, q, k, v)
+    same_bits("flash_attention", got, again(kw, q, k, v))
     time_flash(torch, ops, flash_mod, q, k, v, kw, err)
 
     # every other variant the source builds: the head-dim templates 128
@@ -397,75 +496,83 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
             got = ops.flash_attention(q, k, v, **kw)
             compare(f"{dtype} {label} ({plan.n_splits} splits)", got,
                     flash_mod.flash_attention_plain(q, k, v, **kw))
-            same_bits(got, kw, q, k, v)
+            same_bits("flash_attention", got, again(kw, q, k, v))
     return row
 
 
 def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
-    log("paged_verify_attention (verify: B=8, Sq=5, Hkv=1, G=8, Dh=256, "
-        "page 16):")
+    """The verify kernel (Sq = 5) against its plain version at PAGED_SHAPES
+    and PAGED_VARIANTS, float32 and bf16, each case twice for the same bits,
+    length-0 rows exact zeros; at Sq = 1 with q_offsets = lengths - 1
+    against the decode kernel; timed at the shapes of 13 or more pages."""
+    log("paged_verify_attention (verify, Sq=5 tokens a row; split over runs "
+        "of pages, then merged):")
     row = None
-    # the engine's pool and a spec_k = 4 window: ragged offsets, windows of
-    # 1..5 valid tokens, row 0 inactive
-    b, sq, hkv, g, dh, ps, p, n_pool = 8, 5, 1, 8, 256, 16, 13, 104
-    offs = torch.tensor([0, 42, 60, 77, 100, 150, 177, 203],
-                        dtype=torch.int32, device="cuda")
-    nv = torch.tensor([0, 5, 5, 3, 5, 1, 5, 5], dtype=torch.int32,
-                      device="cuda")
-    lengths = torch.where(nv > 0, offs + nv, 0).to(torch.int32)
-    perm = torch.randperm(n_pool, generator=gen, device="cuda")
-    tables = perm[:b * p].reshape(b, p).to(torch.int32).contiguous()
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, sq, hkv * g, dh, generator=gen,
-                        device="cuda").to(dtype)
-        kp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
-                         device="cuda").to(dtype)
-        vp = torch.randn(n_pool + 1, ps, hkv, dh, generator=gen,
-                         device="cuda").to(dtype)
-        args = (q, kp, vp, tables, lengths, offs)
-        want = verify_mod.paged_verify_attention_plain(*args)
-        got = ops.paged_verify_attention(*args, page_size=ps)
-        err = compare(f"{dtype} q_offsets={offs.tolist()} "
-                      f"lengths={lengths.tolist()}", got, want)
-        if bool((got[0] != 0).any()):
-            raise AssertionError("a length-0 row must give exact zeros")
-        if dtype != torch.float32:
-            continue
-        # one token per row at q_offsets = lengths - 1 is decode attention
-        lens1 = torch.tensor([0, 1, 16, 17, 77, 150, 177, 208],
-                             dtype=torch.int32, device="cuda")
-        offs1 = torch.clamp(lens1 - 1, min=0).to(torch.int32)
-        ver = ops.paged_verify_attention(q[:, :1].contiguous(), kp, vp,
-                                         tables, lens1, offs1,
-                                         page_size=ps)[:, 0]
-        dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, tables,
-                                  lens1, page_size=ps)
-        torch.cuda.synchronize()
-        d1 = float((ver - dec).abs().max())
-        ok = d1 <= 1e-6
-        log(f"  Sq=1 at q_offsets = lengths - 1 against the decode kernel: "
-            f"max_abs_err {d1:.3e} (tolerance 1e-6, bit-identical "
-            f"{bool(torch.equal(ver, dec))}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("verify kernel at Sq=1 disagrees with the "
-                                 "decode kernel")
-        ms = time_ms(lambda: ops.paged_verify_attention(*args, page_size=ps))
-        plain_ms = time_ms(lambda: verify_mod.paged_verify_attention_plain(
-            *args))
-        # K/V read once up to each row's frontier; every query token sees
-        # the positions up to its own (and below the length)
-        front = torch.clamp(torch.minimum(lengths, offs + sq), min=0)
-        seen = torch.minimum(lengths[:, None], offs[:, None] + 1
-                             + torch.arange(sq, device="cuda")[None, :])
-        seen = torch.where(lengths[:, None] > 0, seen, 0)
-        moved = (2 * nbytes(q) + nbytes(tables, lengths, offs)
-                 + 2 * int(front.sum()) * hkv * dh * q.element_size())
-        bd = bound(moved, 4 * int(seen.sum()) * hkv * g * dh, dtype)
-        log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-            f"(no single PyTorch call reads through page tables) bound_ms "
-            f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": None, **bd}
+    sq = 5
+    for label, b, hkv, g, dh, ps, p, lens1, offs, nv in PAGED_SHAPES \
+            + PAGED_VARIANTS:
+        offs = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        nv = torch.tensor(nv, dtype=torch.int32, device="cuda")
+        lengths = torch.where(nv > 0, offs + nv, 0).to(torch.int32)
+        log(f"  {label}: B={b}, Hkv={hkv}, G={g}, Dh={dh}, {p} pages of "
+            f"{ps}, q_offsets={offs.tolist()} lengths={lengths.tolist()}")
+        for dtype in (torch.float32, torch.bfloat16):
+            kp, vp, tables = paged_inputs(torch, gen, b, hkv, dh, ps, p,
+                                          dtype)
+            q = torch.randn(b, sq, hkv * g, dh, generator=gen,
+                            device="cuda").to(dtype)
+            args = (q, kp, vp, tables, lengths, offs)
+            call = lambda: ops.paged_verify_attention(*args, page_size=ps)
+            want = verify_mod.paged_verify_attention_plain(*args)
+            got = call()
+            err = compare(f"{dtype}", got, want)
+            same_bits(f"paged_verify_attention {label}", got, call)
+            if bool((got[lengths == 0] != 0).any()):
+                raise AssertionError("a length-0 row must give exact zeros")
+            log("    " + paged_plan_line(torch, paged_mod,
+                                         "paged_verify_kernel", b, sq,
+                                         hkv * g, hkv, p, ps, dh, dtype))
+            if dtype != torch.float32:
+                continue
+            # one token per row at q_offsets = lengths - 1 is decode attention
+            l1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")
+            o1 = torch.clamp(l1 - 1, min=0).to(torch.int32)
+            ver = ops.paged_verify_attention(q[:, :1].contiguous(), kp, vp,
+                                             tables, l1, o1,
+                                             page_size=ps)[:, 0]
+            dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, tables,
+                                      l1, page_size=ps)
+            torch.cuda.synchronize()
+            d1 = float((ver - dec).abs().max())
+            ok = d1 <= 1e-6
+            log(f"    Sq=1 at q_offsets = lengths - 1 against the decode "
+                f"kernel: max_abs_err {d1:.3e} (tolerance 1e-6, "
+                f"bit-identical {bool(torch.equal(ver, dec))}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("verify kernel at Sq=1 disagrees with "
+                                     "the decode kernel")
+            if p < 13:
+                continue
+            ms = time_ms(call)
+            plain_ms = time_ms(lambda: verify_mod.paged_verify_attention_plain(
+                *args))
+            # K/V read once up to each row's frontier; every query token
+            # sees the positions up to its own (and below the length)
+            front = torch.clamp(torch.minimum(lengths, offs + sq), min=0)
+            seen = torch.minimum(lengths[:, None], offs[:, None] + 1
+                                 + torch.arange(sq, device="cuda")[None, :])
+            seen = torch.where(lengths[:, None] > 0, seen, 0)
+            moved = (2 * nbytes(q) + nbytes(tables, lengths, offs)
+                     + 2 * int(front.sum()) * hkv * dh * q.element_size())
+            bd = bound(moved, 4 * int(seen.sum()) * hkv * g * dh, dtype)
+            log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
+                f"(no single PyTorch call reads through page tables) "
+                f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
+            if row is None:
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None, **bd}
+    log("  the same bits on a second call: every case above")
     return row
 
 
@@ -806,13 +913,21 @@ def profile_engine(torch, engine, prompts, n_adapters,
     log(f"  flash kernels in that window: {flash_ms:.3f} ms of device time, "
         f"{sum(n for _, n in flash)} launches, over {chunks} prefill chunks: "
         f"{flash_ms / max(chunks, 1):.4f} ms per chunk")
-    profile_window(torch, step, engine.run)
-    log(f"  ({step} window: {engine.steps - steps0 - 1} steps)")
+    events = profile_window(torch, step, engine.run)
+    n = max(engine.steps - steps0 - 1, 1)
+    paged = [(ms, c) for key, ms, c in events if "paged_" in key]
+    paged_ms = sum(ms for ms, _ in paged)
+    log(f"  ({step} window: {engine.steps - steps0 - 1} steps; the paged "
+        f"attention kernels {paged_ms:.3f} ms of device time, "
+        f"{sum(c for _, c in paged)} launches: {paged_ms / n:.4f} ms per "
+        f"step)")
 
 
 SERVE_GROUPS = {"port kernels": ("bgmv_kernel", "paged_attn_kernel",
+                                  "paged_attn_merge_kernel",
                                   "flash_split_kernel", "flash_merge_kernel",
-                                  "paged_verify_kernel"),
+                                  "paged_verify_kernel",
+                                  "paged_verify_merge_kernel"),
                 "GEMM/GEMV": ("gemm", "gemv", "Gemv", "Gemm")}
 
 
@@ -1552,16 +1667,8 @@ def main() -> int:
     _build.load()
     log(f"[2] build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
-    entry = ""
-    for line in str(_build.build_info.get("log", "")).splitlines():
-        if "Compiling entry" in line:
-            # the kernel's name and its mangled template arguments
-            m = re.search(r"\d+([A-Za-z_]+_kernel)(I.*?E)?E", line)
-            entry = "".join(g for g in m.groups() if g) if m else ""
-        elif "registers" in line or "spill" in line:
-            log(f"    {entry}: {line.strip()}")
-        elif line.startswith("=="):
-            log("    " + line.strip())
+    for entry, line in ptxas_lines():
+        log(f"    {entry}: {line}")
 
     log("[3] kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -10,6 +10,7 @@ when the module is imported: ``load()`` builds on first use.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,9 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "f" float). Every launcher returns cudaGetLastError() as an int.
 SIGNATURES: Dict[str, str] = {
     "bgmv_launch": "ppppp" + "iiiiii" + "p",
-    "paged_attn_launch": "pppppp" + "iiiiii" + "f" + "i" + "p",
+    "paged_attn_launch": "ppppppp" + "iiiiii" + "ii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppipp" + "iiiiiiii" + "iiii" + "f" + "i" + "p",
-    "paged_verify_launch": "ppppppp" + "iiiiiii" + "f" + "i" + "p",
+    "paged_verify_launch": "pppppppp" + "iiiiiii" + "ii" + "f" + "i" + "p",
     "lora_matmul_launch": "ppppppp" + "iiiiiii" + "p",
     "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",
     "recon_agg_launch": "pppp" + "iiiii" + "p",
@@ -156,6 +157,13 @@ def check_cuda_args(kernel: str, floats, ints=()) -> int:
         raise TypeError(f"{kernel}: index operands must be int32, got "
                         f"{[t.dtype for t in ints]}")
     return DTYPE_CODES[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``: the split plans aim at one block
+    each."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -74,106 +74,6 @@ constexpr int kKeys = 32;                     // keys per staged tile
 constexpr int kMaxDim = 256;
 constexpr int kMergeThreads = 128;  // one (row, 4 head dims) each
 
-// Copy rows [0, n) of d elements into shared rows of stride ``dp`` floats;
-// row i starts at src(i). With ``vec`` (d a multiple of the 16-byte vector,
-// 16-byte aligned bases) float32 rows go by cp.async and bfloat16 rows are
-// widened through registers, 16 bytes at a time; otherwise element by
-// element. One warp per row, lanes along it.
-template <typename T, typename Src>
-__device__ __forceinline__ void stage_rows(float* dst, int dp, int n, int d,
-                                           bool vec, Src src) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < n; i += kWarps) {
-    const T* s = src(i);
-    float* o = dst + i * dp;
-    if (!vec) {
-      for (int e = lane; e < d; e += 32) o[e] = to_f32(s[e]);
-    } else if constexpr (sizeof(T) == 4) {
-      for (int c = lane; c < d / 4; c += 32) cp_async16(o + 4 * c, s + 4 * c);
-    } else {
-      for (int c = lane; c < d / 8; c += 32) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(s + 8 * c);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-        const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-        *reinterpret_cast<float4*>(o + 8 * c) = make_float4(f0.x, f0.y, f1.x, f1.y);
-        *reinterpret_cast<float4*>(o + 8 * c + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-      }
-    }
-  }
-}
-
-// Store 4 consecutive values (``vec``: one vector store) or those below n.
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, const float (&x)[4], int n,
-                                       bool vec) {
-  if (vec && n >= 4) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-    } else {
-      __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x[0], x[1]),
-                             __floats2bfloat162_rn(x[2], x[3])};
-      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
-    }
-    return;
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c < n) dst[c] = from_f32<T>(x[c]);
-}
-
-// Four consecutive elements as float32 (``vec``: one 16- or 8-byte load),
-// zero past n.
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* src, int n, bool vec) {
-  if (vec && n >= 4) {
-    if constexpr (sizeof(T) == 4) {
-      return *reinterpret_cast<const float4*>(src);
-    } else {
-      const uint2 raw = *reinterpret_cast<const uint2*>(src);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-      return make_float4(f0.x, f0.y, f1.x, f1.y);
-    }
-  }
-  float x[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c < n) x[c] = to_f32(src[c]);
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// One butterfly step of reduce_scatter32: lanes keep the half of their H
-// values that their lane bit H names and add the partner's copy of it.
-template <int H>
-__device__ __forceinline__ void reduce_scatter_step(float (&x)[32], int lane) {
-  const bool upper = lane & H;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float send = upper ? x[i] : x[i + H];
-    const float keep = upper ? x[i + H] : x[i];
-    x[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
-  }
-}
-
-// Each lane holds 32 partial sums; afterwards lane l holds the sum over
-// the warp of value l, in a fixed order (31 shuffles).
-__device__ __forceinline__ float reduce_scatter32(float (&x)[32], int lane) {
-  reduce_scatter_step<16>(x, lane);
-  reduce_scatter_step<8>(x, lane);
-  reduce_scatter_step<4>(x, lane);
-  reduce_scatter_step<2>(x, lane);
-  reduce_scatter_step<1>(x, lane);
-  return x[0];
-}
-
 template <typename T, int kDim>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -248,7 +148,7 @@ flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool vec = d % (16 / static_cast<int>(sizeof(T))) == 0 &&
                    aligned16(k) && aligned16(v);
   auto stage_kv = [&](float* dst, const T* base, int k0) {
-    stage_rows<T>(dst, kStride, min(kKeys, hi - k0), d, vec, [&](int j) {
+    stage_rows<kWarps, T>(dst, kStride, min(kKeys, hi - k0), d, vec, [&](int j) {
       return base + ((static_cast<size_t>(bi) * skv + k0 + j) * kv_heads + kh) * d;
     });
   };
@@ -405,38 +305,8 @@ template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
                    size_t total_rows, int d, int n_splits) {
-  const int chunks = (d + 3) / 4;
-  const size_t t = static_cast<size_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
-  if (t >= total_rows * chunks) return;
-  const size_t row = t / chunks;
-  const int c0 = static_cast<int>(t - row * chunks) * 4;
-  const int n = min(4, d - c0);
-  const float* ml = part + static_cast<size_t>(n_splits) * total_rows * d;
-  float mx = kNegInf;
-  for (int s = 0; s < n_splits; ++s)
-    mx = fmaxf(mx, ml[2 * (static_cast<size_t>(s) * total_rows + row)]);
-  float den = 0.f, x[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < n_splits; ++s) {
-    const size_t prow = static_cast<size_t>(s) * total_rows + row;
-    const float w = expf(ml[2 * prow] - mx);
-    den += w * ml[2 * prow + 1];
-    const float* src = part + prow * d + c0;
-    if (d % 4 == 0) {
-      const float4 y = *reinterpret_cast<const float4*>(src);
-      x[0] += w * y.x;
-      x[1] += w * y.y;
-      x[2] += w * y.z;
-      x[3] += w * y.w;
-    } else {
-      for (int c = 0; c < n; ++c) x[c] += w * src[c];
-    }
-  }
-  den = fmaxf(den, 1e-30f);  // no split saw a key: every o_s is 0
-#pragma unroll
-  for (int c = 0; c < 4; ++c) x[c] /= den;
-  const bool vo = d % 4 == 0 &&
-      (reinterpret_cast<unsigned long long>(out) & (4 * sizeof(T) - 1)) == 0;
-  store4<T>(out + row * d + c0, x, n, vo);
+  merge_splits<T>(part, out, total_rows, d, n_splits,
+                  static_cast<size_t>(blockIdx.x) * kMergeThreads + threadIdx.x);
 }
 
 template <typename T, int kDim>

@@ -190,11 +190,6 @@ def merge_partials_plain(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
     return ((o * w[..., None]).sum(0) / den[..., None]).to(dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def launch(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: Optional[int], q_offset) -> torch.Tensor:
     """Run the CUDA kernels on the current stream (no synchronisation): the
@@ -218,7 +213,7 @@ def launch(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = _build.check_cuda_args("flash_attention", (q, k, v))
     plan = plan_splits(b, sq, skv, h, hkv, causal=causal, window=window,
                        q_offset=q_offset,
-                       target_blocks=_sm_count(q.device.index))
+                       target_blocks=_build.sm_count(q.device.index))
     out = torch.empty_like(q)
     scratch = None if plan.n_splits == 1 else torch.empty(
         plan.n_splits * b * sq * h * (d + 2), dtype=torch.float32,

@@ -8,12 +8,15 @@ themselves run only on the GPU (``chip_smoke.py``); what is checked of
 them here is that a CPU tensor never reaches them and that their launch
 wrappers refuse what the kernels do not take.
 """
+import contextlib
 import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -23,6 +26,7 @@ from repro_torch.kernels import bgmv as bgmv_mod
 from repro_torch.kernels import flash_attn as flash_mod
 from repro_torch.kernels import lora_matmul as lora_mod
 from repro_torch.kernels import paged_attn as paged_mod
+from repro_torch.kernels import verify as verify_mod
 
 # float32 on both sides; the products are summed in another order, so
 # results agree to a few ulp of O(1) values.
@@ -225,6 +229,173 @@ def test_flash_attention_all_masked_queries_give_zeros():
     assert torch.count_nonzero(part[0, 2:]) == 0    # pos 7, 8 see none
 
 
+# The page-split plan shared by the paged decode and verify kernels, and the
+# decode kernel's split pass in plain PyTorch.
+
+@settings(max_examples=60, deadline=None)
+@given(b=st.integers(min_value=1, max_value=16),
+       sq=st.integers(min_value=1, max_value=8),
+       hkv=st.integers(min_value=1, max_value=8),
+       groups=st.integers(min_value=1, max_value=8),
+       pages=st.integers(min_value=0, max_value=300),
+       sms=st.sampled_from([1, 7, 132, 144]))
+def test_page_split_plan_covers_each_page_once(b, sq, hkv, groups, pages,
+                                               sms):
+    plan = paged_mod.plan_page_splits(b, sq, hkv * groups, hkv, pages, 16,
+                                      sms)
+    assert plan.n_splits >= 1 and plan.blocks >= 1   # never an empty grid
+    assert plan.row_blocks == b * hkv * -(-sq * groups
+                                          // paged_mod.ROWS_PER_BLOCK)
+    bounds = plan.bounds()
+    covered = [p for lo, hi in bounds for p in range(lo, hi)]
+    assert covered == list(range(pages))             # once each, in order
+    assert all(hi > lo for lo, hi in bounds) or bounds == [(0, 0)]
+    assert plan.bounds(16) == [(16 * lo, 16 * hi) for lo, hi in bounds]
+    if plan.row_blocks * pages >= sms:               # when the work allows
+        assert plan.blocks >= sms
+        # and no split that also gives as many blocks costs less
+        cost = -(-plan.blocks // sms) * plan.pages_per_split
+        for per in range(1, pages + 1):
+            blocks = plan.row_blocks * -(-pages // per)
+            if blocks >= sms:
+                assert -(-blocks // sms) * per >= cost
+    else:
+        assert plan.pages_per_split == 1
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (B, Sq, H, Hkv, P, page_size) -> (splits, pages a split, blocks)
+    ((8, 5, 8, 1, 13, 16), (13, 1, 208)),     # Gemma-2B verify, spec_k 4
+    ((8, 1, 8, 1, 13, 16), (13, 1, 104)),     # Gemma-2B decode
+    ((8, 5, 8, 1, 128, 16), (16, 8, 256)),    # verify over 2048 positions
+    ((8, 1, 8, 1, 128, 16), (32, 4, 256)),    # decode over 2048 positions
+    ((8, 5, 24, 8, 13, 16), (13, 1, 832)),    # minitron-4b verify (G 3)
+    ((1, 1, 8, 1, 1, 16), (1, 1, 1)),         # one page: no merge
+])
+def test_page_split_plan_at_the_checked_shapes(shape, want):
+    """The plans phase 3 of chip_smoke.py runs on the card's 132 SMs;
+    equal costs go to fewer splits (decode over 2048 positions: 1024
+    blocks of one page cost as much as 256 of four)."""
+    plan = paged_mod.plan_page_splits(*shape, 132)
+    assert (plan.n_splits, plan.pages_per_split, plan.blocks) == want
+
+
+def test_page_split_plan_takes_ints_only():
+    """The plan is made on the host from sizes: a device value (a tensor,
+    even one element) is refused rather than read."""
+    with pytest.raises(TypeError, match="must be an int"):
+        paged_mod.plan_page_splits(torch.tensor(8), 1, 8, 1, 13, 16, 132)
+    with pytest.raises(TypeError, match="must be an int"):
+        paged_mod.plan_page_splits(8, 1, 8, 1, np.int64(13), 16, 132)
+
+
+def _edge_lengths(ps, pages):
+    """Ragged lengths: empty, one position, a page edge, inside a page,
+    one past an edge, the whole table."""
+    return [0, 1, ps, ps + 3, 2 * ps + 1, pages * ps]
+
+
+def _split_bounds(pages, ps):
+    """Position ranges: the plans at several SM counts, one split of the
+    whole table, and uneven runs of whole pages."""
+    out = [paged_mod.plan_page_splits(6, 1, 8, 1, pages, ps, sms).bounds(ps)
+           for sms in (1, 4, 132)]
+    out.append([(0, pages * ps)])
+    out.append([(0, ps), (ps, 3 * ps), (3 * ps, pages * ps)])
+    return out
+
+
+@pytest.mark.parametrize("groups", [1, 3, 8])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_partials_merge_to_plain_decode(groups, ps, dtype):
+    """The decode kernel's split pass and the merge, in plain PyTorch,
+    over any runs of whole pages, give the plain version: float32 within
+    1e-5 (sums in another order), bf16 one rounding of the float32 result
+    (within one bf16 ulp), length-0 rows exact zeros."""
+    pages, hkv, dh = 4, 2, 16
+    lengths = _edge_lengths(ps, pages)
+    q, kp, vp, tables, lens = _paged_inputs(groups * 10 + ps, len(lengths),
+                                            hkv, groups, dh, ps, pages,
+                                            lengths)
+    q, kp, vp = (_t(a).to(dtype) for a in (q, kp, vp))
+    tables, lens = _t(tables), _t(lens)
+    want = paged_mod.paged_attention_plain(q, kp, vp, tables, lens)
+    for bounds in _split_bounds(pages, ps):
+        m, l, o = paged_mod.paged_partials_plain(q, kp, vp, tables, lens,
+                                                 bounds)
+        assert m.shape == (len(bounds), len(lengths), hkv * groups)
+        got = flash_mod.merge_partials_plain(m, l, o, dtype)
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        else:
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+        assert torch.count_nonzero(got[0]) == 0      # length 0
+        # a split past the length sees nothing: m = NEG_INF, l = 0, o = 0
+        empty = torch.tensor([lo >= int(n) for lo, _ in bounds
+                              for n in lens]).reshape(len(bounds), -1)
+        assert bool((m[empty] == paged_mod.NEG_INF).all())
+        assert torch.count_nonzero(l[empty]) == 0
+        assert torch.count_nonzero(o[empty]) == 0
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records each launcher's
+    arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def paged_attn_launch(self, *args):
+        self.calls["paged_attn_launch"] = args
+        return 0
+
+    def paged_verify_launch(self, *args):
+        self.calls["paged_verify_launch"] = args
+        return 0
+
+
+def _no_host_read(*_args, **_kw):
+    raise AssertionError("the launch path read a tensor on the host")
+
+
+def test_paged_launch_paths_read_no_tensor_on_the_host(monkeypatch):
+    """The paged launchers plan from shapes and pass pointers: with every
+    tensor-to-host read made to raise, both still launch, with the plan's
+    splits and a scratch of the plan's size. (On a card such a read would
+    wait for the device and could not be captured into a CUDA graph.)"""
+    monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **k: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a)
+                        or empty(*a, **k))
+    b, sq, h, hkv, dh, ps, pages = 8, 5, 8, 1, 256, 16, 13
+    q = torch.zeros(b, sq, h, dh)
+    pool = torch.zeros(b * pages + 1, ps, hkv, dh)
+    tables = torch.zeros(b, pages, dtype=torch.int32)
+    lens = torch.full((b,), 40, dtype=torch.int32)
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__index__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, _no_host_read)
+    lib = _RecordingLib()
+    verify_mod.launch(lib, q, pool, pool, tables, lens, lens, ps)
+    paged_mod.launch(lib, q[:, 0], pool, pool, tables, lens, ps)
+    monkeypatch.undo()
+    for name, s, want in (("paged_verify_launch", sq, (13, 1)),
+                          ("paged_attn_launch", 1, (13, 1))):
+        args = lib.calls[name]
+        assert all(isinstance(a, (int, float)) or a is None for a in args)
+        assert tuple(args[-5:-3]) == want             # splits, pages each
+        assert any(shape == (13 * b * s * h * (dh + 2),)
+                   for shape in made)                 # the partials
+
+
 # The split plan of the CUDA flash kernel and the plain versions of its two
 # passes (split partials, merge). Cases: (B, Sq, Skv, H, Hkv, q_offset,
 # window); a tuple offset is one per row (a tensor).
@@ -420,6 +591,11 @@ def test_kernel_launchers_refuse_cpu_tensors():
         flash_mod.launch(None, torch.randn(1, 2, 2, 260),
                          torch.randn(1, 3, 1, 260), torch.randn(1, 3, 1, 260),
                          causal=True, window=None, q_offset=0)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        paged_mod.launch(None, torch.randn(1, 2, 260),
+                         torch.randn(3, 4, 1, 260), torch.randn(3, 4, 1, 260),
+                         torch.zeros(1, 2, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32), 4)
     w0, a, b, s = (torch.randn(8, 3), torch.randn(8, 2), torch.randn(2, 3),
                    torch.tensor(1.0))
     with pytest.raises(ValueError, match="CUDA"):

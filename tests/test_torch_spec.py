@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.configs import get_reduced as j_get_reduced
 from repro.kernels import ops as jops
@@ -28,6 +30,7 @@ from repro.serve.pages import PagedKV as JPagedKV
 from repro_torch import interop
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attn as flash_mod
 from repro_torch.kernels import paged_attn as paged_mod
 from repro_torch.kernels import verify as verify_mod
 from repro_torch.serve import (AdapterRegistry, NGramDrafter, PagedKV,
@@ -155,15 +158,135 @@ def test_verify_op_and_launcher_refuse_what_the_kernel_does_not_take():
                                    page_size=8)
     with pytest.raises(ValueError, match="CUDA"):
         verify_mod.launch(None, q, kp, vp, tables, lens, offs, 8)
-    # Sq*G*Dh past one block's shared memory: a clear error, no fallback
+    # A block's shared memory no longer grows with Sq*G: the shape the
+    # one-block-per-row kernel refused (Sq 64, G 8, Dh 256) passes the
+    # shape checks and is stopped only by the device check here.
     big = torch.zeros(1, 64, 8, 256)
     pool = torch.zeros(3, 16, 1, 256)
     one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        verify_mod.launch(None, big, pool, pool,
-                          torch.zeros(1, 2, dtype=torch.int32), one, one, 16)
-    # the engine's shape on full-width Gemma-2B fits
-    assert verify_mod.smem_bytes(5, 8, 256, 16) <= verify_mod.MAX_SMEM_BYTES
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        verify_mod.launch(None, big, pool, pool, tables, one, one, 16)
+    # What it refuses: Dh past the split kernel's register tiles, a clear
+    # error before anything is launched, no fallback.
+    wide = torch.zeros(1, 5, 8, 260)
+    wpool = torch.zeros(3, 16, 1, 260)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        verify_mod.launch(None, wide, wpool, wpool, tables, one, one, 16)
+
+
+def _frontier_inputs(seed, sq, hkv, groups, dh, ps, pages, dtype):
+    """Rows whose causal frontier min(length, offset + Sq) falls: nowhere
+    (length 0), inside a page, at a page edge, one past an edge, and past
+    the length (the window runs on beyond it), plus the whole table."""
+    rng = np.random.default_rng(seed)
+    offs = np.array([0, ps + 2, 2 * ps - sq, 2 * ps - sq + 1, ps - 1,
+                     pages * ps - sq], np.int32).clip(0)
+    lens = np.minimum(offs + sq, pages * ps).astype(np.int32)
+    lens[0] = 0
+    lens[4] = offs[4] + 1                     # only the first token is valid
+    bsz = len(offs)
+    n_pool = bsz * pages
+    q = rng.standard_normal((bsz, sq, hkv * groups, dh), dtype=np.float32)
+    kp = rng.standard_normal((n_pool + 1, ps, hkv, dh), dtype=np.float32)
+    vp = rng.standard_normal((n_pool + 1, ps, hkv, dh), dtype=np.float32)
+    tables = rng.permutation(n_pool).reshape(bsz, pages).astype(np.int32)
+    return (_t(q).to(dtype), _t(kp).to(dtype), _t(vp).to(dtype), _t(tables),
+            _t(lens), _t(offs))
+
+
+@settings(max_examples=24, deadline=None)
+@given(sq=st.integers(min_value=1, max_value=5),
+       groups=st.sampled_from([1, 3, 8]),
+       ps=st.sampled_from([8, 16]),
+       hkv=st.sampled_from([1, 2]),
+       sms=st.sampled_from([1, 4, 132]),
+       bf16=st.booleans(),
+       seed=st.integers(min_value=0, max_value=2 ** 16))
+def test_verify_split_partials_merge_to_the_plain_version(sq, groups, ps, hkv,
+                                                          sms, bf16, seed):
+    """The verify kernel's split pass over the plan's runs of pages, then
+    the merge, in plain PyTorch, give the plain version: float32 within
+    1e-5 (sums in another order), bf16 one rounding of the float32 result
+    (one bf16 ulp); a length-0 row gives exact zeros."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    pages = 4
+    args = _frontier_inputs(seed, sq, hkv, groups, 16, ps, pages, dtype)
+    plan = paged_mod.plan_page_splits(args[0].shape[0], sq, hkv * groups,
+                                      hkv, pages, ps, sms)
+    m, l, o = verify_mod.paged_partials_plain(*args, plan.bounds(ps))
+    assert o.shape == (plan.n_splits, *args[0].shape)
+    got = flash_mod.merge_partials_plain(m, l, o, dtype)
+    want = verify_mod.paged_verify_attention_plain(*args)
+    assert got.dtype == want.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+    assert torch.count_nonzero(got[0]) == 0
+
+
+@pytest.mark.parametrize("bounds", [
+    [(0, 32)],                                 # one split, no merge
+    [(0, 8), (8, 16), (16, 24), (24, 32)],     # one page each
+    [(0, 8), (8, 32)],                         # uneven runs
+])
+def test_verify_split_partials_of_a_frontier_inside_the_split(bounds):
+    """A split wholly past a row's frontier is empty (m = NEG_INF, l = 0,
+    o = 0); a token sees exactly the positions up to its own, so the
+    partials move with K/V at a visible position and not with one past
+    the token (pages of 8, Sq 3)."""
+    q, kp, vp, tables, lens, offs = _frontier_inputs(3, 3, 1, 3, 8, 8, 4,
+                                                     torch.float32)
+    m, l, o = verify_mod.paged_partials_plain(q, kp, vp, tables, lens, offs,
+                                              bounds)
+    front = torch.minimum(lens, offs + 3)
+    for s, (lo, _) in enumerate(bounds):
+        past = front <= lo
+        assert bool((m[s][past] == paged_mod.NEG_INF).all())
+        assert torch.count_nonzero(l[s][past]) == 0
+        assert torch.count_nonzero(o[s][past]) == 0
+    b, i = 2, 0                               # token 0 of row 2
+    pos = int(offs[b]) + 1                    # past it, inside the frontier
+    kp2 = kp.clone()
+    kp2[int(tables[b, pos // 8]), pos % 8] = 50.0
+    m2, l2, o2 = verify_mod.paged_partials_plain(q, kp2, vp, tables, lens,
+                                                 offs, bounds)
+    assert torch.equal(o2[:, b, i], o[:, b, i])
+    assert not torch.equal(o2[:, b, i + 1], o[:, b, i + 1])
+
+
+@pytest.mark.parametrize("groups,ps,sms", [(1, 8, 132), (3, 16, 4),
+                                           (8, 8, 1), (8, 16, 132)])
+def test_verify_split_partials_at_sq1_equal_decode_partials(groups, ps, sms):
+    """One token per row at q_offsets = lengths - 1 is decode: the verify
+    and decode split passes agree split by split over the same plan (the
+    kernels share one body and give the same bits there)."""
+    pages, hkv = 4, 2
+    rng = np.random.default_rng(groups * 100 + ps)
+    lens = np.array([0, 1, ps, ps + 3, 2 * ps + 1, pages * ps], np.int32)
+    bsz, n_pool = len(lens), len(lens) * pages
+    q = _t(rng.standard_normal((bsz, hkv * groups, 16), dtype=np.float32))
+    kp, vp = (_t(rng.standard_normal((n_pool + 1, ps, hkv, 16),
+                                     dtype=np.float32)) for _ in range(2))
+    tables = _t(rng.permutation(n_pool).reshape(bsz, pages).astype(np.int32))
+    lens = _t(lens)
+    offs = torch.clamp(lens - 1, min=0).to(torch.int32)
+    plan = paged_mod.plan_page_splits(bsz, 1, hkv * groups, hkv, pages, ps,
+                                      sms)
+    assert plan == paged_mod.plan_page_splits(bsz, 1, hkv * groups, hkv,
+                                              pages, ps, sms)
+    ver = verify_mod.paged_partials_plain(q[:, None], kp, vp, tables, lens,
+                                          offs, plan.bounds(ps))
+    dec = paged_mod.paged_partials_plain(q, kp, vp, tables, lens,
+                                         plan.bounds(ps))
+    for v, d in zip(ver, dec):
+        torch.testing.assert_close(v[:, :, 0], d, rtol=0, atol=1e-6)
+    torch.testing.assert_close(
+        flash_mod.merge_partials_plain(*ver, torch.float32)[:, 0],
+        paged_mod.paged_attention_plain(q, kp, vp, tables, lens), rtol=0,
+        atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
