@@ -21,9 +21,14 @@ Phases, each of which raises on failure:
    second call at the engine's shape, minitron-4b's GQA heads, 2048
    positions and every other variant built, each with its split plan and
    registers, the verify kernel also against the decode kernel at one
-   token per row; lora_matmul also at a ragged shape, its backward (dx, dA,
-   dB; float32) against autograd through the plain version, and every
-   other rank variant built (R 13, 29, 64) forward and backward;
+   token per row; lora_matmul's forward and dx also at two ragged shapes
+   (one taking the kernels with element loads) and at M = 1 on Gemma-2B's
+   widths, each at the other split count and with an operand off 16-byte
+   alignment, with each plan and the kernels' registers, the same bits on
+   a second call, and cuBLAS's base products timed beside them; its
+   backward (dx, dA, dB; float32) through ``apply_lora`` against autograd
+   through the plain version, and every other rank variant built (R 13,
+   29, 64) forward and backward;
    recon_agg (float32) batched at the server's shapes on RoBERTa-large
    (48 items, Kc 4 and 20, d 1024, R 8), ragged, at rank 16 and in the
    single-item form, with the same bits on a second call;
@@ -49,9 +54,9 @@ Phases, each of which raises on failure:
    ``AggregationEngine`` with hlora ``factored`` (Gram), ``exact`` and
    ``randomized`` and with ``naive``; Eq. 1's bias per target; at fixed
    tolerances (stated beside them): (a) the kernel's dW' against the plain
-   version's on the CPU, (b) exact's spectra against factored's and the
-   CPU's, (c) Eckart-Young for every item and client against
-   ``svdvals`` of the kernel's dW', (d) exact's client updates against
+   version's on the CPU, (b) exact's spectra against factored's, the
+   CPU's and a float64 SVD's, (c) Eckart-Young for every item and client
+   against ``svdvals`` of the kernel's dW', (d) exact's client updates against
    factored's where the truncation is well separated, (e) randomized on a
    sub-cohort inside its contract against exact, (f) recon_agg launched
    exactly once per exact or randomized call and never otherwise, and
@@ -576,17 +581,65 @@ def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
     return row
 
 
+# (label, M, K, N, R): the training path's shape, two ragged ones (the
+# second with K and N not multiples of 4: the kernels with element loads)
+# and the merged-weight oracle's M = 1 on Gemma-2B's widths
+LORA_SHAPES = [
+    ("training: 16 x 32 tokens through a q or v projection of "
+     "RoBERTa-large", 512, 1024, 1024, 8),
+    ("ragged", 500, 1000, 1000, 6),
+    ("ragged, element loads", 37, 999, 1001, 5),
+    ("M = 1, Gemma-2B q and o (oracle)", 1, 2048, 2048, 8),
+    ("M = 1, Gemma-2B k and v (oracle)", 1, 2048, 256, 8),
+]
+
+
+def lora_plan_line(torch, lora_mod, op, plan, dtype, vec, r) -> str:
+    """The plan of one forward or dx call and the ptxas registers and
+    spills of the kernels it launches (the bottleneck, the tile GEMM in
+    the instantiation ``vec`` picks, the merge where it splits)."""
+    tname = "f" if dtype == torch.float32 else "13__nv_bfloat16"
+    rmax = next(t for t in (8, 16, 32, 64) if r <= t)
+    flag = f"Lb{int(vec)}E"
+    if op == "forward":
+        entries = [f"lora_xa_kernelI{tname}Li{rmax}E",
+                   f"lora_fwd_kernelI{tname}{flag}"]
+        merge = f"lora_fwd_merge_kernelI{tname}E"
+    else:
+        entries = [f"lora_g_kernelILi{rmax}E", f"lora_dx_kernelI{flag}"]
+        merge = "lora_dx_merge_kernel"
+    if plan.n_splits > 1:
+        entries.append(merge)
+    lines = ptxas_lines()
+    regs = []
+    for entry in entries:
+        found = [ln.replace("ptxas info    : ", "") for e, ln in lines
+                 if e == entry]
+        regs.append(f"{entry}: {' / '.join(found) or 'not in this build log'}")
+    return (f"plan: tile {lora_mod.TILE[0]} x {lora_mod.TILE[1]}, "
+            f"{plan.n_splits} splits of {plan.k_per_split}, {plan.blocks} "
+            f"GEMM blocks ({plan.tiles_m} x {plan.tiles_n} tiles), "
+            f"{'16-byte' if vec else 'element'} loads; " + "; ".join(regs))
+
+
 def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
-    """The three lora_matmul kernels at the training path's shape (16
-    sequences x 32 tokens through a 1024 x 1024 q or v projection of
-    RoBERTa-large, r_max 8, scale 16/8), the forward also ragged; the
-    backward through ``apply_lora``'s autograd Function against autograd
-    through the plain version; then every other rank variant, forward and
+    """The lora_matmul kernels: forward (float32 and bf16) and dx at
+    LORA_SHAPES against their plain versions, each case twice for the same
+    bits, with the plan and the kernels' registers; each shape also with
+    the other split count (one split where the plan splits, two where it
+    does not), and with x and dy one element off 16-byte alignment
+    (element loads); times at the training path's shape and at M = 1; the backward
+    through ``apply_lora``'s autograd Function against autograd through the
+    plain version; then every other rank variant built, forward and
     backward, at a ragged shape. Returns the three kernels' rows."""
     from repro_torch.core import lora as lora_lib
+    from repro_torch.kernels import _build
     log("lora_matmul (training: x (512, 1024), W0 (1024, 1024), R 8, "
         "scale 2):")
     rows = {}
+    why = "float32 sums of K (xa), N (dx, g) or M (dA, dB) products in " \
+          "another order"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def inputs(m, k, n, r, dtype):
         x = torch.randn(m, k, generator=gen, device="cuda")
@@ -595,32 +648,128 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
         b = 0.05 * torch.randn(r, n, generator=gen, device="cuda")
         return [t.to(dtype).contiguous() for t in (x, w0, a, b)]
 
+    def off16(t):
+        """A copy of t whose data starts one element past 16-byte
+        alignment."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+        skip = (-buf.data_ptr() % 16) // t.element_size() + 1
+        view = buf[skip:skip + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
     scale = torch.tensor(2.0, device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        for m, k, n, r in ((512, 1024, 1024, 8), (500, 1000, 1000, 6)):
+    lib = _build.load()
+    for label, m, k, n, r in LORA_SHAPES:
+        log(f"  {label}: x ({m}, {k}), W0 ({k}, {n}), R {r}")
+        for dtype in (torch.float32, torch.bfloat16):
             x, w0, a, b = inputs(m, k, n, r, dtype)
-            want = lora_mod.lora_matmul_plain(x, w0, a, b, scale)
-            got, xa = ops.lora_matmul(x, w0, a, b, scale, return_xa=True)
-            err = compare(f"{dtype} forward ({m}, {k}) x ({k}, {n}) R {r}",
-                          got, want)
-            compare_scaled("    xa", xa, x.float() @ a.float(), 1e-5,
-                           "float32 sums of K products in another order")
-            if dtype != torch.float32 or m != 512:
-                continue
-            ms = time_ms(lambda: ops.lora_matmul(x, w0, a, b, scale,
-                                                 return_xa=True))
-            plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
-                x, w0, a, b, scale))
-            cublas_ms = time_ms(lambda: x @ w0)
-            ops_n = 2 * m * k * n + 2 * m * r * (k + n)
-            bd = bound(nbytes(x, w0, a, b, got, xa), ops_n, dtype)
-            log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-                f"(no single PyTorch call computes the fused function; "
-                f"cuBLAS x @ W0 alone {cublas_ms:.4f} ms) bound_ms "
-                f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
-            rows["lora_matmul"] = {"max_abs_err": err, "ms": ms,
-                                   "plain_ms": plain_ms, "library_ms": None,
-                                   **bd}
+            want, xa_ref = lora_mod.lora_matmul_parts(x, w0, a, b, scale)
+            call = lambda: ops.lora_matmul(x, w0, a, b, scale, return_xa=True)
+            got, xa = call()
+            err = compare(f"{dtype} forward", got, want)
+            compare_scaled("    xa", xa, xa_ref, 1e-5, why)
+            same_bits("lora_matmul forward", torch.cat(
+                [got.float().flatten(), xa.flatten()]),
+                lambda: torch.cat([t.float().flatten() for t in call()]))
+            plan = lora_mod.plan_splits(m, n, k, sms)
+            vec = lora_mod.vector_loads(x.element_size(), k, n, (
+                x.data_ptr(), w0.data_ptr(), got.data_ptr()))
+            log("    " + lora_plan_line(torch, lora_mod, "forward", plan,
+                                        dtype, vec, r))
+            other = lora_mod.split_plan(m, n, k,
+                                        1 if plan.n_splits > 1 else 2)
+            o_call = lambda: lora_mod.launch(lib, x, w0, a, b, scale,
+                                             plan=other)
+            got_o = o_call()
+            compare(f"{dtype} forward, {other.n_splits} splits of "
+                    f"{other.k_per_split}", got_o, want)
+            same_bits("lora_matmul forward, other split", got_o, o_call)
+            xo = off16(x)
+            o_call = lambda: ops.lora_matmul(xo, w0, a, b, scale)
+            got_o = o_call()
+            compare(f"{dtype} forward, x one element off 16-byte alignment "
+                    f"(element loads)", got_o, want)
+            same_bits("lora_matmul forward, element loads", got_o, o_call)
+            if dtype == torch.float32 and m == 512:
+                ms = time_ms(call)
+                plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
+                    x, w0, a, b, scale))
+                cublas_ms = time_ms(lambda: x @ w0)
+                ops_n = 2 * m * k * n + 2 * m * r * (k + n)
+                bd = bound(nbytes(x, w0, a, b, got, xa), ops_n, dtype)
+                log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                    f"null (no single PyTorch call computes the fused "
+                    f"function; cuBLAS x @ W0 alone {cublas_ms:.4f} ms) "
+                    f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
+                rows["lora_matmul"] = {"max_abs_err": err, "ms": ms,
+                                       "plain_ms": plain_ms,
+                                       "library_ms": None, **bd}
+            elif dtype == torch.float32 and m == 1:
+                plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
+                    x, w0, a, b, scale))
+                log(f"    ms {time_ms(call):.4f} plain_ms {plain_ms:.4f} "
+                    f"cuBLAS x @ W0 alone {time_ms(lambda: x @ w0):.4f}")
+            if dtype != torch.float32:
+                continue            # the backward takes float32 only
+            dy = torch.randn(m, n, generator=gen, device="cuda")
+            dx_ref, g_ref = lora_mod.lora_matmul_dx_plain(dy, w0, a, b,
+                                                          scale)
+            call = lambda: ops.lora_matmul_dx(dy, w0, a, b, scale)
+            dx, g = call()
+            dx_err = compare_scaled("  dx", dx, dx_ref, 1e-5, why)
+            compare_scaled("    g", g, g_ref, 1e-5, why)
+            same_bits("lora_matmul_dx", torch.cat([dx.flatten(),
+                                                   g.flatten()]),
+                      lambda: torch.cat([t.flatten() for t in call()]))
+            g_call = lambda: ops.lora_matmul_dx(dy, w0, a, b, scale,
+                                                need_dx=False)[1]
+            g_only = g_call()
+            compare_scaled("    g alone (dx skipped)", g_only, g_ref, 1e-5,
+                           why)
+            same_bits("lora_matmul_dx g alone", g_only, g_call)
+            plan = lora_mod.plan_splits(m, k, n, sms)
+            vec = lora_mod.vector_loads(4, n, k, (dy.data_ptr(),
+                                                  w0.data_ptr(),
+                                                  dx.data_ptr()))
+            log("    " + lora_plan_line(torch, lora_mod, "dx", plan, dtype,
+                                        vec, r))
+            other = lora_mod.split_plan(m, k, n,
+                                        1 if plan.n_splits > 1 else 2)
+            o_call = lambda: lora_mod.launch_dx(lib, dy, w0, a, b, scale,
+                                                plan=other)[0]
+            got_o = o_call()
+            compare_scaled(f"    dx, {other.n_splits} splits of "
+                           f"{other.k_per_split}", got_o, dx_ref, 1e-5, why)
+            same_bits("lora_matmul_dx, other split", got_o, o_call)
+            dyo = off16(dy)
+            o_call = lambda: ops.lora_matmul_dx(dyo, w0, a, b, scale)[0]
+            got_o = o_call()
+            compare_scaled("    dx, dy one element off 16-byte alignment "
+                           "(element loads)", got_o, dx_ref, 1e-5, why)
+            same_bits("lora_matmul_dx, element loads", got_o, o_call)
+            if m == 512:
+                ms, plain_ms = time_ms(call), time_ms(
+                    lambda: lora_mod.lora_matmul_dx_plain(dy, w0, a, b,
+                                                          scale))
+                cublas_ms = time_ms(lambda: dy @ w0.T)
+                bd = bound(nbytes(dy, w0, a, b, dx, g),
+                           2 * m * n * k + 2 * m * r * (n + k),
+                           torch.float32)
+                log(f"    dx: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                    f"library_ms null (no single PyTorch call; cuBLAS "
+                    f"dy @ W0^T alone {cublas_ms:.4f} ms; g alone "
+                    f"{time_ms(g_call):.4f} ms) bound_ms "
+                    f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
+                rows["lora_matmul_dx"] = {"max_abs_err": dx_err, "ms": ms,
+                                          "plain_ms": plain_ms,
+                                          "library_ms": None, **bd}
+            elif m == 1:
+                plain_ms = time_ms(lambda: lora_mod.lora_matmul_dx_plain(
+                    dy, w0, a, b, scale))
+                log(f"    dx: ms {time_ms(call):.4f} plain_ms "
+                    f"{plain_ms:.4f} cuBLAS dy @ W0^T alone "
+                    f"{time_ms(lambda: dy @ w0.T):.4f}")
+    log("  the same bits on a second call: every case above")
 
     # backward at the path's shape, rank 6 of r_max 8: through apply_lora
     # (the Function, so the kernels) against autograd of the plain version
@@ -640,8 +789,8 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                                            16.0 / rank)
         y.backward(dy)
         grads[label] = (xl.grad, al.grad, bl.grad)
-    why = "float32 sums of N (dx) or M (dA, dB) products in another order"
-    errs = [compare_scaled(f"{name} (rank {rank} of 8)", g, p, 1e-5, why)
+    errs = [compare_scaled(f"{name} (rank {rank} of 8, through apply_lora)",
+                           g, p, 1e-5, why)
             for name, g, p in zip(("dx", "dA", "dB"), grads["kernel"],
                                   grads["plain"])]
     ga, gb = grads["kernel"][1], grads["kernel"][2]
@@ -650,31 +799,33 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     log(f"  masked directions (A columns, B rows {rank}..7): gradient "
         f"exactly 0")
     am, bm = a * mask, b * mask[:, None]
-    _, g_only = ops.lora_matmul_dx(dy, w0, am, bm, scale, need_dx=False)
-    _, g_ref = lora_mod.lora_matmul_dx_plain(dy, w0, am, bm, scale)
-    compare_scaled("g alone (dx skipped)", g_only, g_ref, 1e-5, why)
-
+    # g alone on masked factors: layer 0's dx op in training
+    g_call = lambda: ops.lora_matmul_dx(dy, w0, am, bm, scale,
+                                        need_dx=False)[1]
+    g_only = g_call()
+    _, g_ref = lora_mod.lora_matmul_dx_plain(dy, w0, am, bm, scale,
+                                             need_dx=False)
+    compare_scaled(f"g alone (dx skipped; rank {rank} of 8)", g_only, g_ref,
+                   1e-5, why)
+    same_bits("lora_matmul_dx g alone, masked factors", g_only, g_call)
     _, xa = ops.lora_matmul(x, w0, am, bm, scale, return_xa=True)
-    dx, g = ops.lora_matmul_dx(dy, w0, am, bm, scale)
+    _, g = ops.lora_matmul_dx(dy, w0, am, bm, scale)
+    call = lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale)
+    da, db = call()
+    same_bits("lora_matmul_grad_ab", torch.cat([da.flatten(), db.flatten()]),
+              lambda: torch.cat([t.flatten() for t in call()]))
     r = 8
-    for name, fn, plain, moved, ops_n, err in (
-            ("lora_matmul_dx",
-             lambda: ops.lora_matmul_dx(dy, w0, am, bm, scale),
-             lambda: lora_mod.lora_matmul_dx_plain(dy, w0, am, bm, scale),
-             nbytes(dy, w0, am, bm, dx, g),
-             2 * m * n * k + 2 * m * r * (n + k), errs[0]),
-            ("lora_matmul_grad_ab",
-             lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale),
-             lambda: lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, scale),
-             nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
-             2 * m * r * (k + n), max(errs[1:]))):
-        ms, plain_ms = time_ms(fn), time_ms(plain)
-        bd = bound(moved, ops_n, torch.float32)
-        log(f"  {name}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-            f"(no single PyTorch call) bound_ms {bd['bound_ms']:.5f} "
-            f"({bd['bound_by']})")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": None, **bd}
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: lora_mod.lora_matmul_grad_ab_plain(
+        x, xa, dy, g, scale))
+    bd = bound(nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
+               2 * m * r * (k + n), torch.float32)
+    log(f"  lora_matmul_grad_ab: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms null (no single PyTorch call) bound_ms "
+        f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
+    rows["lora_matmul_grad_ab"] = {"max_abs_err": max(errs[1:]), "ms": ms,
+                                   "plain_ms": plain_ms, "library_ms": None,
+                                   **bd}
 
     # every other rank variant the source builds (RMAX 16, 32, 64; the
     # ranks are not multiples of 8, so the rank edge is masked too) at the
@@ -684,20 +835,33 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     for r in (13, 29, 64):
         x, w0, a, b = inputs(m, k, n, r, torch.float32)
         xb, w0b, ab, bb = (t.to(torch.bfloat16) for t in (x, w0, a, b))
+        call = lambda: ops.lora_matmul(xb, w0b, ab, bb, scale)
+        got = call()
         compare(f"torch.bfloat16 forward ({m}, {k}) x ({k}, {n}) R {r}",
-                ops.lora_matmul(xb, w0b, ab, bb, scale),
-                lora_mod.lora_matmul_plain(xb, w0b, ab, bb, scale))
-        y, xa = ops.lora_matmul(x, w0, a, b, scale, return_xa=True)
+                got, lora_mod.lora_matmul_plain(xb, w0b, ab, bb, scale))
+        same_bits(f"bf16 forward R {r}", got, call)
+        call = lambda: ops.lora_matmul(x, w0, a, b, scale, return_xa=True)
+        y, xa = call()
         y_ref, xa_ref = lora_mod.lora_matmul_parts(x, w0, a, b, scale)
         compare(f"torch.float32 forward ({m}, {k}) x ({k}, {n}) R {r}", y,
                 y_ref)
-        compare_scaled("    xa", xa, xa_ref, 1e-5,
-                       "float32 sums of K products in another order")
+        compare_scaled("    xa", xa, xa_ref, 1e-5, why)
+        same_bits(f"forward R {r}", torch.cat([y.flatten(), xa.flatten()]),
+                  lambda: torch.cat([t.flatten() for t in call()]))
         dy = torch.randn(m, n, generator=gen, device="cuda")
-        dx, g = ops.lora_matmul_dx(dy, w0, a, b, scale)
+        call = lambda: ops.lora_matmul_dx(dy, w0, a, b, scale)
+        dx, g = call()
+        same_bits(f"dx R {r}", torch.cat([dx.flatten(), g.flatten()]),
+                  lambda: torch.cat([t.flatten() for t in call()]))
         dx_ref, g_ref = lora_mod.lora_matmul_dx_plain(dy, w0, a, b, scale)
-        _, g_only = ops.lora_matmul_dx(dy, w0, a, b, scale, need_dx=False)
-        da, db = ops.lora_matmul_grad_ab(x, xa_ref, dy, g_ref, scale)
+        g_call = lambda: ops.lora_matmul_dx(dy, w0, a, b, scale,
+                                            need_dx=False)[1]
+        g_only = g_call()
+        same_bits(f"g alone R {r}", g_only, g_call)
+        call = lambda: ops.lora_matmul_grad_ab(x, xa_ref, dy, g_ref, scale)
+        da, db = call()
+        same_bits(f"dA/dB R {r}", torch.cat([da.flatten(), db.flatten()]),
+                  lambda: torch.cat([t.flatten() for t in call()]))
         da_ref, db_ref = lora_mod.lora_matmul_grad_ab_plain(x, xa_ref, dy,
                                                             g_ref, scale)
         for name, got, want in (("dx", dx, dx_ref), ("g", g, g_ref),
@@ -936,16 +1100,19 @@ def serve_group(key: str) -> str:
                  if any(k in key for k in keys)), "other")
 
 
-TRAIN_GROUPS = {"lora_matmul": ("lora_fwd_kernel",),
-                "lora_matmul_dx": ("lora_dx_kernel", "lora_g_kernel"),
+TRAIN_GROUPS = {"lora_matmul": ("lora_xa_kernel", "lora_fwd_kernel",
+                                "lora_fwd_merge_kernel"),
+                "lora_matmul_dx": ("lora_g_kernel", "lora_dx_kernel",
+                                   "lora_dx_merge_kernel"),
                 "lora_matmul_grad_ab": ("lora_grad_ab_kernel",),
                 "cuBLAS GEMM": ("gemm", "gemv", "Gemv", "Gemm")}
 
 
 def train_group(key: str) -> str:
     """Device time groups of a training step: the three lora ops' kernels
-    (by their entry names; the dx op runs lora_g_kernel at layer 0),
-    cuBLAS, the rest."""
+    (by their entry names: each of the forward and dx runs its bottleneck
+    kernel, its tile GEMM and, where the plan splits, its merge; at layer
+    0 the dx op runs lora_g_kernel alone), cuBLAS, the rest."""
     return next((g for g, keys in TRAIN_GROUPS.items()
                  if any(k in key for k in keys)), "other")
 
@@ -1288,10 +1455,16 @@ def run_training(torch, np) -> tuple:
         f"acc {float(ev['acc']):.4f}, loss {float(ev['loss']):.5f} in "
         f"{time.perf_counter() - t0:.2f} s (random backbone: ~0.5 expected)")
     local = make_local_train(cfg, adamw(sim.lr), device="cuda")
-    profile_window(torch, "3 training steps (client 0)", lambda: local(
+    events = profile_window(torch, "3 training steps (client 0)",
+                            lambda: local(
         frozen["card"], tree_map(lambda t: t[0], trainable),
         tree_map(lambda t: t[0], cmasks),
         {k: v[0, :3] for k, v in data.items()}), group=train_group)
+    per_step = {g: sum(ms for key, ms, _ in events if train_group(key) == g)
+                / 3 for g in ("lora_matmul", "lora_matmul_dx",
+                              "lora_matmul_grad_ab")}
+    log("  lora device ms a step: " + ", ".join(
+        f"{g} {v:.3f}" for g, v in per_step.items()))
     return launches, {"cfg": cfg, "factors": trained["factors"],
                       "masks": cmasks, "shards": [len(x) for x in shards]}
 
@@ -1575,6 +1748,20 @@ def run_aggregation(torch, np, trained) -> int:
     hold_spectra(f"(b) exact, card against CPU ({time.perf_counter() - t0:.2f}"
                  f" s on the CPU)", spec["exact"],
                  item_spectra(torch, spec_cpu), sig)
+    # and against float64: Householder QR of the float64 factors, whose
+    # product is dW' (its sigmas exact to ~1e-15 sigma_1)
+    from repro_torch.core.svd import svd_factored
+    n_items, kc, d_in, rr = a.shape
+    p64 = (a.double() * coef.double()[:, :, None, None]).permute(
+        0, 2, 1, 3).reshape(n_items, d_in, kc * rr)
+    _, truth, _ = svd_factored(p64, b.double().reshape(n_items, kc * rr, -1),
+                               r_max)
+    hold_spectra("(b) exact on the card against float64 (QR of the float64 "
+                 "factors)", spec["exact"], truth, truth)
+    log(f"  (svdvals of dW' with cuSOLVER's default driver, gesvdj, against "
+        f"float64: max |diff| / sigma_1 "
+        f"{float(((sig[:, :r_max] - truth).abs() / truth[:, :1]).max()):.3e})")
+    del p64
 
     # (c) Eckart-Young and (d) client updates where they are unique
     dw64 = dw.double()

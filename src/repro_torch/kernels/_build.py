@@ -34,7 +34,7 @@ SIGNATURES: Dict[str, str] = {
     "paged_attn_launch": "ppppppp" + "iiiiii" + "ii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppipp" + "iiiiiiii" + "iiii" + "f" + "i" + "p",
     "paged_verify_launch": "pppppppp" + "iiiiiii" + "ii" + "f" + "i" + "p",
-    "lora_matmul_launch": "ppppppp" + "iiiiiii" + "p",
+    "lora_matmul_launch": "pppppppp" + "iiiiiiiiii" + "p",
     "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",
     "recon_agg_launch": "pppp" + "iiiii" + "p",
 }

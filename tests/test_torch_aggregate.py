@@ -329,6 +329,32 @@ def test_svd_randomized_holds_its_contract_and_matches_reference():
         assert torch.equal(x, y)
 
 
+def test_svd_exact_asks_cuda_for_the_qr_based_driver(monkeypatch):
+    """On CUDA ``svd_exact`` asks cuSOLVER for ``gesvd``: the default
+    there, the Jacobi ``gesvdj``, loses precision on a rank-deficient ΔW.
+    On the CPU it passes no driver (the keyword is CUDA-only). Checked
+    with a recording stand-in for ``torch.linalg.svd`` and a tensor that
+    reports itself as on CUDA."""
+    drivers = []
+    real_svd = torch.linalg.svd
+
+    def recording_svd(w, full_matrices=True, *, driver=None):
+        drivers.append(driver)
+        return real_svd(w.as_subclass(torch.Tensor),
+                        full_matrices=full_matrices)
+
+    class OnCuda(torch.Tensor):
+        is_cuda = True
+
+    monkeypatch.setattr(torch.linalg, "svd", recording_svd)
+    w = _t(np.random.default_rng(2).standard_normal((2, 12, 10),
+                                                    dtype=np.float32))
+    _, s_cuda, _ = t_svd.svd_exact(w.as_subclass(OnCuda), 4)
+    _, s_cpu, _ = t_svd.svd_exact(w, 4)
+    assert drivers == ["gesvd", None]
+    assert torch.equal(s_cuda.as_subclass(torch.Tensor), s_cpu)
+
+
 @pytest.mark.parametrize("split", ["paper", "sqrt"])
 def test_split_factors_and_truncation_error_match_reference(split):
     rng = np.random.default_rng(11)

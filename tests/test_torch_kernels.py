@@ -356,6 +356,10 @@ class _RecordingLib:
         self.calls["paged_verify_launch"] = args
         return 0
 
+    def lora_matmul_launch(self, *args):
+        self.calls.setdefault("lora_matmul_launch", []).append(args)
+        return 0
+
 
 def _no_host_read(*_args, **_kw):
     raise AssertionError("the launch path read a tensor on the host")
@@ -631,3 +635,181 @@ def test_kernel_sources_and_build_recipe():
     assert h == _build.source_hash() and len(h) == 16
     assert _build.library_path().parent == _build.BUILD_DIR
     assert h in _build.library_path().name
+
+
+# The tile GEMM of the CUDA lora_matmul forward and dx: its plan (the
+# reduction split, from ints), the plain model of its decomposition, and
+# the launcher's choice between 16-byte and element loads.
+
+@settings(max_examples=80, deadline=None)
+@given(m=st.integers(min_value=1, max_value=700),
+       n=st.integers(min_value=1, max_value=2100),
+       k=st.integers(min_value=0, max_value=2100),
+       sms=st.sampled_from([1, 7, 132, 144]))
+def test_lora_split_plan_covers_each_output_and_depth_once(m, n, k, sms):
+    plan = lora_mod.plan_splits(m, n, k, sms)
+    rows, cols = lora_mod.TILE
+    assert plan.tiles_m * plan.tiles_n * plan.n_splits == plan.blocks >= 1
+    cells = np.zeros((m, n), dtype=np.int32)
+    for i in range(plan.tiles_m):                 # the grid's output tiles
+        for j in range(plan.tiles_n):
+            assert i * rows < m and j * cols < n  # none empty
+            cells[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols] += 1
+    assert (cells == 1).all()                     # every output once
+    bounds = plan.bounds()
+    depth = [d for lo, hi in bounds for d in range(lo, hi)]
+    assert depth == list(range(k))                # every depth once, in order
+    if k:
+        assert all(hi > lo for lo, hi in bounds)
+        assert plan.k_per_split % lora_mod.DEPTH == 0
+    else:
+        assert bounds == [(0, 0)]
+    assert 1 <= plan.n_splits <= lora_mod.MAX_SPLITS
+    assert plan.tiles_m <= 65535
+    # no other split into whole stages, up to four times the fewest that
+    # give every SM two blocks, takes fewer waves x depth; none of fewer
+    # splits as few
+    tiles = plan.tiles_m * plan.tiles_n
+    most = 4 * -(-2 * sms // tiles)
+    assert plan.n_splits <= max(most, 1)
+    cost = lora_mod.plan_cost(plan, sms)
+    for splits in range(1, min(-(-k // lora_mod.DEPTH), most) + 1):
+        other = lora_mod.split_plan(m, n, k, splits)
+        assert lora_mod.plan_cost(other, sms) >= cost
+        if other.n_splits < plan.n_splits:
+            assert lora_mod.plan_cost(other, sms) > cost
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (m, n, k) -> (splits, depth a split, blocks) on 132 SMs
+    ((512, 1024, 1024), (2, 512, 256)),       # RoBERTa-large q/v: fwd, dx
+    ((1, 2048, 2048), (8, 256, 256)),         # Gemma-2B oracle, M = 1: q, o
+    ((1, 256, 2048), (64, 32, 256)),          # ... k, v
+    ((1, 2048, 256), (8, 32, 256)),           # dx of k, v at M = 1
+    # phase 3's ragged shape: waves alone would take 63 splits of 16 (31
+    # waves, 496 < 512); the cap (4 x 3 splits) keeps 2
+    ((500, 1000, 1000), (2, 512, 256)),
+    ((37, 1001, 999), (16, 64, 256)),         # the element-load shape
+    ((37, 999, 1001), (16, 64, 256)),         # its dx
+    ((1, 24, 40), (3, 16, 3)),                # tiny: a block a split
+    ((2048, 1024, 1024), (1, 1024, 512)),     # enough tiles: no split
+])
+def test_lora_split_plan_at_the_checked_shapes(shape, want):
+    """The plans phase 3 of chip_smoke.py runs on the card's 132 SMs."""
+    plan = lora_mod.plan_splits(*shape, 132)
+    assert (plan.n_splits, plan.k_per_split, plan.blocks) == want
+
+
+def test_lora_split_plan_takes_ints_only():
+    """The plan is made on the host from sizes: a device value (a tensor,
+    even one element) is refused rather than read."""
+    with pytest.raises(TypeError, match="must be an int"):
+        lora_mod.plan_splits(torch.tensor(512), 1024, 1024, 132)
+    with pytest.raises(TypeError, match="must be an int"):
+        lora_mod.plan_splits(512, 1024, np.int64(1024), 132)
+    with pytest.raises(TypeError, match="must be an int"):
+        lora_mod.plan_splits(512, 1024, 1024, 132.0)
+
+
+# (m, k, n, r): ragged M, K and N, ranks that are not multiples of 8
+@pytest.mark.parametrize("m,k,n,r", [
+    (37, 50, 70, 1), (64, 96, 80, 8), (5, 129, 33, 3), (70, 33, 130, 13),
+    (1, 200, 24, 29), (20, 48, 16, 5),
+])
+def test_lora_split_decomposition_equals_the_plain_versions(m, k, n, r):
+    """The tile GEMM's arithmetic in plain PyTorch (split partials, the
+    low-rank term as R more reduction steps of split 0, the partials
+    summed in split order) equals ``lora_matmul_parts`` and
+    ``lora_matmul_dx_plain``, for the plan and for forced splits; within
+    float32 reordering of O(1) sums (TOL). The forward also equals the
+    reference's ``lora_matmul_ref``."""
+    x, w0, a, b = (_t(v) for v in _lora_inputs(m * k + r, m, k, n, r))
+    dy = torch.from_numpy(np.random.default_rng(r).standard_normal(
+        (m, n)).astype(np.float32))
+    s = torch.tensor(16.0 / r)
+    y_ref, xa_ref = lora_mod.lora_matmul_parts(x, w0, a, b, s)
+    dx_ref, g_ref = lora_mod.lora_matmul_dx_plain(dy, w0, a, b, s)
+    plans = [(lora_mod.plan_splits(m, n, k, 8),
+              lora_mod.plan_splits(m, k, n, 8))]
+    plans += [(lora_mod.split_plan(m, n, k, sp),
+               lora_mod.split_plan(m, k, n, sp)) for sp in (1, 2, 3, 5)]
+    for pf, pd in plans:
+        y, xa = lora_mod.lora_matmul_split_plain(x, w0, a, b, s, pf)
+        torch.testing.assert_close(y, y_ref, **TOL)
+        assert torch.equal(xa, xa_ref)
+        dx, g = lora_mod.lora_matmul_dx_split_plain(dy, w0, a, b, s, pd)
+        torch.testing.assert_close(dx, dx_ref, **TOL)
+        assert torch.equal(g, g_ref)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jref.lora_matmul_ref(
+        jnp.asarray(x.numpy()), jnp.asarray(w0.numpy()),
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()), 16.0 / r)), **TOL)
+
+
+def test_lora_launcher_picks_element_loads_for_unaligned_operands(
+        monkeypatch):
+    """16-byte loads need K and N multiples of 16 bytes of elements and
+    16-byte aligned operands; otherwise the launcher asks for the kernel
+    with element loads. Checked on the host with a stand-in library (no
+    card), with the plan's split passed and the partials' scratch sized to
+    the plan."""
+    assert lora_mod.vector_loads(4, 1024, 1024, (0, 16, 4096))
+    assert not lora_mod.vector_loads(4, 1001, 1024, (0,))
+    assert not lora_mod.vector_loads(4, 1024, 999, (0,))
+    assert not lora_mod.vector_loads(4, 1024, 1024, (0, 4))
+    assert not lora_mod.vector_loads(2, 1020, 1024, (0,))   # bf16: 8s
+    assert lora_mod.vector_loads(2, 1016, 1024, (0,))
+    monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **k: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a)
+                        or empty(*a, **k))
+    s = torch.tensor(2.0)
+    lib = _RecordingLib()
+
+    def aligned(m, k, off=0):
+        """(m, k) float32 whose data starts ``off`` elements past a
+        16-byte boundary."""
+        t = empty(m * k + 8)
+        skip = (-t.data_ptr() % 16) // 4 + off
+        return t[skip:skip + m * k].view(m, k)
+
+    cases = [  # (x offset, K, N) -> 16-byte loads
+        (0, 64, 96, 1),
+        (0, 63, 96, 0),          # K not a multiple of 4
+        (0, 64, 99, 0),          # N not a multiple of 4
+        (1, 64, 96, 0),          # x (and dy) 4 bytes past 16
+    ]
+    for off, k, n, want in cases:
+        w0 = aligned(k, n)
+        a, b = torch.zeros(k, 4), torch.zeros(4, n)
+        lora_mod.launch(lib, aligned(37, k, off), w0, a, b, s)
+        args = lib.calls["lora_matmul_launch"][-1]
+        assert all(isinstance(v, int) or v is None for v in args)
+        plan = lora_mod.plan_splits(37, n, k, 132)
+        assert args[8:14] == (37, n, k, 4, 0, 1)
+        assert args[14:17] == (plan.n_splits, plan.k_per_split, want)
+        assert (args[7] is None) == (plan.n_splits == 1)
+        if plan.n_splits > 1:
+            assert (plan.n_splits * 37 * n,) in made
+        # dx of the same shapes: dy (37, N) against W0 (K, N)
+        lora_mod.launch_dx(lib, aligned(37, n, off), w0, a, b, s)
+        args = lib.calls["lora_matmul_launch"][-1]
+        plan = lora_mod.plan_splits(37, k, n, 132)
+        assert args[8:14] == (37, k, n, 4, 1, 1)
+        assert args[14:17] == (plan.n_splits, plan.k_per_split, want)
+    # g alone takes no plan and no 16-byte loads
+    lora_mod.launch_dx(lib, aligned(37, 96), aligned(64, 96),
+                       torch.zeros(64, 4), torch.zeros(4, 96), s,
+                       need_dx=False)
+    args = lib.calls["lora_matmul_launch"][-1]
+    assert args[5] is None and args[7] is None
+    assert args[12:17] == (1, 0, 0, 0, 0)
+    # a plan made for another shape is refused
+    with pytest.raises(ValueError, match="plan for"):
+        lora_mod.launch(lib, aligned(37, 64), aligned(64, 96),
+                        torch.zeros(64, 4), torch.zeros(4, 96), s,
+                        plan=lora_mod.plan_splits(38, 96, 64, 132))
