@@ -622,16 +622,77 @@ def lora_plan_line(torch, lora_mod, op, plan, dtype, vec, r) -> str:
             f"{'16-byte' if vec else 'element'} loads; " + "; ".join(regs))
 
 
+def grad_ab_plan_line(lora_mod, plan, slots, vec) -> str:
+    """The plan of one dA/dB call, the waves the card's cluster capacity
+    gives it, and the ptxas registers and spills of the kernel
+    instantiation it launches."""
+    entry = f"lora_grad_ab_kernelILi{plan.rank_chunk}ELb{int(vec)}E"
+    found = [ln.replace("ptxas info    : ", "") for e, ln in ptxas_lines()
+             if e == entry]
+    held = slots[plan.n_splits - 1]
+    return (f"plan: {plan.n_splits} slabs of {plan.rows_per_split} rows "
+            f"(one cluster of {plan.n_splits} a tile), {plan.blocks} blocks "
+            f"({plan.tiles_a} + {plan.tiles_b} tiles of {lora_mod.AB_COLS} "
+            f"columns x {plan.chunks} rank chunks of {plan.rank_chunk}; the "
+            f"card holds {held} in clusters of {plan.n_splits}: "
+            f"{-(-plan.blocks // held)} wave(s)), "
+            f"{'16-byte' if vec else 'element'} loads; {entry}: "
+            f"{' / '.join(found) or 'not in this build log'}")
+
+
+def hold_grad_ab(torch, ops, lora_mod, lib, x, xa, dy, g, scale, why,
+                 off16) -> float:
+    """dA/dB through ops against the plain version and the split plain
+    version of the plan, the same bits twice; then under another slab
+    count (through ``launch_grad_ab(..., plan=)``, not counted) and with x
+    one element off 16-byte alignment (element loads). Returns the largest
+    error against the plain version."""
+    m, k = x.shape
+    n, r = dy.shape[1], xa.shape[1]
+    slots = lora_mod.cluster_slots(lib, 0, lora_mod.rank_chunk(r))
+    plan = lora_mod.plan_grad_ab(m, k, n, r, slots)
+    vec = lora_mod.vector_loads(4, k, n, (x.data_ptr(), dy.data_ptr()))
+    log(f"    dA/dB {grad_ab_plan_line(lora_mod, plan, slots, vec)}")
+    want = lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, scale)
+    errs = []
+
+    def hold(label, call, p, x_=x):
+        got = call()
+        split = lora_mod.lora_matmul_grad_ab_split_plain(x_, xa, dy, g,
+                                                         scale, p)
+        for name, a, b, c in zip(("dA", "dB"), got, want, split):
+            errs.append(compare_scaled(f"    {name}{label}", a, b, 1e-5, why))
+            compare_scaled(f"    {name}{label} against the split plain "
+                           f"version", a, c, 1e-5, why)
+        same_bits(f"lora_matmul_grad_ab{label}",
+                  torch.cat([t.flatten() for t in got]),
+                  lambda: torch.cat([t.flatten() for t in call()]))
+
+    hold("", lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale), plan)
+    other = lora_mod.grad_ab_plan(m, k, n, r, 1 if plan.n_splits > 1
+                                  else lora_mod.AB_MAX_SPLITS)
+    if other != plan:
+        hold(f", {other.n_splits} slabs of {other.rows_per_split}",
+             lambda: lora_mod.launch_grad_ab(lib, x, xa, dy, g, scale,
+                                             plan=other), other)
+    xo = off16(x)
+    hold(", x one element off 16-byte alignment (element loads)",
+         lambda: ops.lora_matmul_grad_ab(xo, xa, dy, g, scale), plan, xo)
+    return max(errs)
+
+
 def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     """The lora_matmul kernels: forward (float32 and bf16) and dx at
     LORA_SHAPES against their plain versions, each case twice for the same
     bits, with the plan and the kernels' registers; each shape also with
     the other split count (one split where the plan splits, two where it
     does not), and with x and dy one element off 16-byte alignment
-    (element loads); times at the training path's shape and at M = 1; the backward
-    through ``apply_lora``'s autograd Function against autograd through the
-    plain version; then every other rank variant built, forward and
-    backward, at a ragged shape. Returns the three kernels' rows."""
+    (element loads); times at the training path's shape and at M = 1; dA/dB
+    at every shape and at M = 4096 against the plain and split plain
+    versions (``hold_grad_ab``); the backward through ``apply_lora``'s
+    autograd Function against autograd through the plain version; then
+    every other rank variant built, forward and backward, at a ragged
+    shape. Returns the three kernels' rows."""
     from repro_torch.core import lora as lora_lib
     from repro_torch.kernels import _build
     log("lora_matmul (training: x (512, 1024), W0 (1024, 1024), R 8, "
@@ -659,6 +720,11 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
 
     scale = torch.tensor(2.0, device="cuda")
     lib = _build.load()
+    log("  dA/dB: blocks the card holds at once in clusters of 1..8 slabs "
+        "(lora_grad_ab_slots): rank chunk 8 "
+        f"{lora_mod.cluster_slots(lib, 0, 8)}, 16 "
+        f"{lora_mod.cluster_slots(lib, 0, 16)}; two an SM would be "
+        f"{lora_mod.BLOCKS_PER_SM * sms}")
     for label, m, k, n, r in LORA_SHAPES:
         log(f"  {label}: x ({m}, {k}), W0 ({k}, {n}), R {r}")
         for dtype in (torch.float32, torch.bfloat16):
@@ -769,7 +835,36 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                 log(f"    dx: ms {time_ms(call):.4f} plain_ms "
                     f"{plain_ms:.4f} cuBLAS dy @ W0^T alone "
                     f"{time_ms(lambda: dy @ w0.T):.4f}")
+            hold_grad_ab(torch, ops, lora_mod, lib, x, xa_ref, dy, g_ref,
+                         scale, why, off16)
     log("  the same bits on a second call: every case above")
+
+    def time_grad_ab(x, xa, dy, g):
+        """dA/dB's time, its plain version's, cuBLAS's two products (a
+        pair of calls, not one) and its bound."""
+        m, k = x.shape
+        n, r = dy.shape[1], xa.shape[1]
+        times = [time_ms(fn) for fn in (
+            lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale),
+            lambda: lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, scale),
+            lambda: (x.T @ g, xa.T @ dy))]
+        bd = bound(nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
+                   2 * m * r * (k + n), torch.float32)
+        log(f"  lora_matmul_grad_ab ({m}, {k}, {n}, R {r}): ms "
+            f"{times[0]:.4f} plain_ms {times[1]:.4f} library_ms null (no "
+            f"single PyTorch call; the cuBLAS pair x^T @ g and xa^T @ dy, two "
+            f"calls: {times[2]:.4f} ms) bound_ms {bd['bound_ms']:.5f} "
+            f"({bd['bound_by']})")
+        return times, bd
+
+    # dA/dB at M = 4096 (slabs of hundreds of rows): held and timed
+    m, k, n, r = 4096, 1024, 1024, 8
+    log(f"  dA/dB at M = {m}: x ({m}, {k}), dy ({m}, {n}), R {r}")
+    x, _, a, b = inputs(m, k, n, r, torch.float32)
+    dy = torch.randn(m, n, generator=gen, device="cuda")
+    xa, g = x @ a, dy @ b.T
+    hold_grad_ab(torch, ops, lora_mod, lib, x, xa, dy, g, scale, why, off16)
+    time_grad_ab(x, xa, dy, g)
 
     # backward at the path's shape, rank 6 of r_max 8: through apply_lora
     # (the Function, so the kernels) against autograd of the plain version
@@ -810,22 +905,17 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     same_bits("lora_matmul_dx g alone, masked factors", g_only, g_call)
     _, xa = ops.lora_matmul(x, w0, am, bm, scale, return_xa=True)
     _, g = ops.lora_matmul_dx(dy, w0, am, bm, scale)
-    call = lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale)
-    da, db = call()
-    same_bits("lora_matmul_grad_ab", torch.cat([da.flatten(), db.flatten()]),
-              lambda: torch.cat([t.flatten() for t in call()]))
-    r = 8
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: lora_mod.lora_matmul_grad_ab_plain(
-        x, xa, dy, g, scale))
-    bd = bound(nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
-               2 * m * r * (k + n), torch.float32)
-    log(f"  lora_matmul_grad_ab: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms null (no single PyTorch call) bound_ms "
-        f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
-    rows["lora_matmul_grad_ab"] = {"max_abs_err": max(errs[1:]), "ms": ms,
-                                   "plain_ms": plain_ms, "library_ms": None,
-                                   **bd}
+    log(f"  dA/dB on the masked factors (rank {rank} of 8):")
+    err = hold_grad_ab(torch, ops, lora_mod, lib, x, xa, dy, g, scale, why,
+                       off16)
+    da, db = ops.lora_matmul_grad_ab(x, xa, dy, g, scale)
+    if bool(da[:, rank:].any()) or bool(db[rank:, :].any()):
+        raise AssertionError("dA/dB: masked rank directions got a nonzero "
+                             "gradient")
+    (ms, plain_ms, _), bd = time_grad_ab(x, xa, dy, g)
+    rows["lora_matmul_grad_ab"] = {"max_abs_err": max(errs[1:] + [err]),
+                                   "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": None, **bd}
 
     # every other rank variant the source builds (RMAX 16, 32, 64; the
     # ranks are not multiples of 8, so the rank edge is masked too) at the
@@ -858,16 +948,11 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                                             need_dx=False)[1]
         g_only = g_call()
         same_bits(f"g alone R {r}", g_only, g_call)
-        call = lambda: ops.lora_matmul_grad_ab(x, xa_ref, dy, g_ref, scale)
-        da, db = call()
-        same_bits(f"dA/dB R {r}", torch.cat([da.flatten(), db.flatten()]),
-                  lambda: torch.cat([t.flatten() for t in call()]))
-        da_ref, db_ref = lora_mod.lora_matmul_grad_ab_plain(x, xa_ref, dy,
-                                                            g_ref, scale)
         for name, got, want in (("dx", dx, dx_ref), ("g", g, g_ref),
-                                ("g alone", g_only, g_ref), ("dA", da, da_ref),
-                                ("dB", db, db_ref)):
+                                ("g alone", g_only, g_ref)):
             compare_scaled(f"    {name} (R {r})", got, want, 1e-5, why)
+        hold_grad_ab(torch, ops, lora_mod, lib, x, xa_ref, dy, g_ref, scale,
+                     why, off16)
     return rows
 
 
@@ -1112,7 +1197,9 @@ def train_group(key: str) -> str:
     """Device time groups of a training step: the three lora ops' kernels
     (by their entry names: each of the forward and dx runs its bottleneck
     kernel, its tile GEMM and, where the plan splits, its merge; at layer
-    0 the dx op runs lora_g_kernel alone), cuBLAS, the rest."""
+    0 the dx op runs lora_g_kernel alone; dA/dB is lora_grad_ab_kernel
+    alone, its slabs meeting inside one cluster launch), cuBLAS, the
+    rest."""
     return next((g for g, keys in TRAIN_GROUPS.items()
                  if any(k in key for k in keys)), "other")
 

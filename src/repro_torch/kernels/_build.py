@@ -28,14 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # extern "C" launchers: name -> argument kinds ("p" pointer, "i" int,
-# "f" float). Every launcher returns cudaGetLastError() as an int.
+# "f" float). Every launcher returns cudaGetLastError() as an int;
+# lora_grad_ab_slots returns a count of blocks (negative: a CUDA error).
 SIGNATURES: Dict[str, str] = {
     "bgmv_launch": "ppppp" + "iiiiii" + "p",
     "paged_attn_launch": "ppppppp" + "iiiiii" + "ii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppipp" + "iiiiiiii" + "iiii" + "f" + "i" + "p",
     "paged_verify_launch": "pppppppp" + "iiiiiii" + "ii" + "f" + "i" + "p",
     "lora_matmul_launch": "pppppppp" + "iiiiiiiiii" + "p",
-    "lora_grad_ab_launch": "ppppppp" + "iiiii" + "p",
+    "lora_grad_ab_launch": "ppppppp" + "iiiiiiii" + "p",
+    "lora_grad_ab_slots": "ii",
     "recon_agg_launch": "pppp" + "iiiii" + "p",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

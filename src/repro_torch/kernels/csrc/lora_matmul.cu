@@ -71,11 +71,42 @@
 //    1024), 256 blocks; 8 at M = 1 and N 2048. Split partials go to
 //    float32 scratch and lora_fwd_merge_kernel / lora_dx_merge_kernel sum
 //    them in split order: no atomics, the same inputs give the same bits.
-// lora_grad_ab_kernel: the two skinny reductions over M. Each block owns
-// 32 columns of x (for dA) or of dy (for dB): a lane per column, eight
-// warps splitting the rows, RMAX float32 partial sums per thread, the
-// other factor's row broadcast across the warp; the eight partials are
-// summed in shared memory in a fixed order (deterministic, no atomics).
+//
+// Design of dA/dB (lora_grad_ab_kernel): two skinny reductions over M in
+// one launch. At the training shape the work is ~4 MB of x and dy read
+// once and 2 x 512 x 8 x 1024 multiply-adds: the time is the latency of
+// getting the bytes in flight, not the arithmetic.
+// 1. Fill the card: a block owns a tile of 64 columns of x (dA) or of dy
+//    (dB), a chunk of ranks and a slab of rows. The slabs are planned on
+//    the host from ints (kernels/lora_matmul.py::plan_grad_ab, the port's
+//    waves x work rule): the blocks a wave holds are what the runtime
+//    reports for a cluster of that many slabs (lora_grad_ab_slots), since
+//    a cluster's blocks share one GPC and the H100 holds 240 blocks in
+//    clusters of 8, not two an SM (264). At (512, 1024, 1024, R 8): 7
+//    slabs of 80 rows x 32 tiles = 224 blocks, one wave (the old kernel:
+//    64 blocks of 32 columns over all M).
+// 2. Bytes in flight: a half-warp covers one row of the tile with 16-byte
+//    loads (4 columns a lane), the 256 threads take 16 rows a step, and
+//    each thread issues its loads of 8 steps (RC 8; 4 at RC 16) before it
+//    uses any of them. The slab's rows of the other factor (g or xa, R
+//    floats a row) are staged once per 128 (64) rows in shared memory and
+//    read there as 16-byte broadcasts. Where K or N is not a multiple of
+//    4 or x or dy is not 16-byte aligned, the instantiation with element
+//    loads does the same sums in the same order.
+// 3. Registers: a thread holds 4 columns x RC ranks. The ranks go in
+//    chunks of RC = 8 (R <= 8) or 16 (any larger R, one chunk per grid z
+//    index, x re-read from L2 for each): at most 64 accumulators beside
+//    32 (RC 8) or 16 (RC 16) loaded floats, so the launch bounds of two
+//    256-thread blocks an SM hold without spills.
+// 4. A fixed order, no atomics: the two half-warps of a warp add their
+//    sums (lower + upper), the eight warps meet in shared memory in warp
+//    order, and the slabs of one tile form one thread block cluster (at
+//    most 8, the portable size) whose block r sums the r-th share of the
+//    tile over the members' shared memory in slab order, scales it and
+//    writes dA/dB: one launch, no scratch, the same inputs give the same
+//    bits. With one slab the block writes its own sums.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -551,63 +582,149 @@ lora_dx_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// 3. dA and dB
+// 3. dA and dB: dA (K, R) = s x^T g, dB (R, N) = s xa^T dy
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kCols = 32;                  // columns per reduction block
-constexpr int kWarps = kThreads / 32;
+// The block (kernels/lora_matmul.py::AB_COLS, AB_SLAB, AB_MAX_SPLITS):
+// 256 threads on a tile of 64 columns, 16 rows a step (a half-warp a row,
+// 4 columns a lane); at most 8 slabs (the portable cluster size).
+constexpr int kAbThreads = 256;
+constexpr int kAbWarps = kAbThreads / 32;
+constexpr int kAbCols = 64;
+constexpr int kAbRowsStep = kAbThreads / (kAbCols / 4);
+constexpr int kAbMaxSplits = 8;
 
-template <int RMAX>
-__global__ void __launch_bounds__(kThreads)
+// grid (n_splits, tiles_a + tiles_b, rank chunks), clusters of n_splits
+// along x: block (z, t, c) sums rows [z rows_per_split, (z + 1)
+// rows_per_split) of column tile t (tiles [0, tiles_a) of x for dA, the
+// rest of dy for dB) against ranks [c RC, (c + 1) RC) of g or xa.
+template <int RC, bool VEC>
+__global__ void __launch_bounds__(kAbThreads, kBlocksPerSm)
 lora_grad_ab_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ xa, const float* __restrict__ dy,
                     const float* __restrict__ scale, float* __restrict__ da,
                     float* __restrict__ db, int M, int K, int N, int R,
-                    int blocks_a) {
-  // blocks [0, blocks_a): dA[c, r] = s * sum_m x[m, c] g[m, r], c < K;
-  // the rest:            dB[r, c] = s * sum_m xa[m, r] dy[m, c], c < N.
-  constexpr int kChunk = RMAX < 16 ? RMAX : 16;
-  __shared__ float s_red[kWarps][kChunk][kCols + 1];
-  const bool is_a = blockIdx.x < blocks_a;   // uniform across the block
-  const int c0 = (is_a ? blockIdx.x : blockIdx.x - blocks_a) * kCols;
+                    int tiles_a, int rows_per_split) {
+  static_assert(RC % 4 == 0, "ranks read as 16-byte vectors");
+  // steps of loads in flight a thread: 8 (32 floats) beside RC 8's 32
+  // accumulators, 4 beside RC 16's 64, within the 128 registers
+  constexpr int kAbSteps = RC == 8 ? 8 : 4;
+  constexpr int kAbStage = kAbRowsStep * kAbSteps;  // rows staged at a time
+  constexpr int kPart = RC * kAbCols;          // the block's sums, [RC][kAbCols]
+  constexpr int kStageFloats = kAbStage * RC;  // the staged rows of g or xa
+  // the stage during the loop; afterwards the warps' sums, added in place
+  // into warp 0's, which the cluster then reads
+  __shared__ __align__(16) float smem[kAbWarps * kPart > kStageFloats
+                                          ? kAbWarps * kPart : kStageFloats];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int half = lane >> 4, c4 = (lane & 15) * 4;  // tile columns c4..c4+3
+  const int row_lane = warp * 2 + half;              // row of each step
+  // the slab is the block's rank in its cluster: the cluster spans grid x
+  const int split = blockIdx.x, tile = blockIdx.y, r0 = blockIdx.z * RC;
+  const bool is_a = tile < tiles_a;  // uniform across the block
+  const int c0 = (is_a ? tile : tile - tiles_a) * kAbCols;
   const float* p = is_a ? x : dy;
   const float* q = is_a ? g : xa;
   const int C = is_a ? K : N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = c0 + lane;
+  const int col = c0 + c4;
+  const int lo = split * rows_per_split, hi = min(M, lo + rows_per_split);
+  const float s = *scale;  // read now, not on the way out
 
-  float acc[RMAX];
+  float acc[4][RC];
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
-  for (int m = warp; m < M; m += kWarps) {
-    const float pv = c < C ? p[static_cast<size_t>(m) * C + c] : 0.f;
-    const float* qr = q + static_cast<size_t>(m) * R;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < R) acc[r] = fmaf(pv, qr[r], acc[r]);
-  }
+    for (int j = 0; j < RC; ++j) acc[i][j] = 0.f;
 
-  const float s = *scale;
+  for (int base = lo; base < hi; base += kAbStage) {
+    float4 pv[kAbSteps];  // every step's load issued before any is used
 #pragma unroll
-  for (int r0 = 0; r0 < RMAX; r0 += kChunk) {
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) s_red[warp][j][lane] = acc[r0 + j];
-    __syncthreads();
-    for (int e = threadIdx.x; e < kChunk * kCols; e += kThreads) {
-      const int j = e / kCols, l = e % kCols;
-      const int r = r0 + j, cc = c0 + l;
-      if (r < R && cc < C) {
-        float v = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += s_red[w][j][l];
-        v *= s;
-        if (is_a) da[static_cast<size_t>(cc) * R + r] = v;
-        else db[static_cast<size_t>(r) * N + cc] = v;
-      }
+    for (int u = 0; u < kAbSteps; ++u) {
+      const int row = base + u * kAbRowsStep + row_lane;
+      pv[u] = row < hi ? load4(p + static_cast<size_t>(row) * C + col, C - col, VEC)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (base > lo) __syncthreads();  // every thread is done with the last stage
+    for (int e = tid; e < kStageFloats; e += kAbThreads) {
+      const int row = base + e / RC, r = r0 + e % RC;
+      smem[e] = row < hi && r < R ? q[static_cast<size_t>(row) * R + r] : 0.f;
     }
     __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kAbSteps; ++u) {
+      const float* qr = smem + (u * kAbRowsStep + row_lane) * RC;
+      const float pc[4] = {pv[u].x, pv[u].y, pv[u].z, pv[u].w};
+#pragma unroll
+      for (int j = 0; j < RC; j += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr + j);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] = fmaf(pc[i], qv.x, acc[i][j]);
+          acc[i][j + 1] = fmaf(pc[i], qv.y, acc[i][j + 1]);
+          acc[i][j + 2] = fmaf(pc[i], qv.z, acc[i][j + 2]);
+          acc[i][j + 3] = fmaf(pc[i], qv.w, acc[i][j + 3]);
+        }
+      }
+    }
   }
+
+  // the two half-warps hold the same columns over other rows: both lanes
+  // take lower + upper
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < RC; ++j) {
+      const float other = __shfl_xor_sync(0xffffffffu, acc[i][j], 16);
+      acc[i][j] = half ? other + acc[i][j] : acc[i][j] + other;
+    }
+  __syncthreads();  // the stage is free
+  if (half == 0) {
+#pragma unroll
+    for (int j = 0; j < RC; ++j)
+      *reinterpret_cast<float4*>(smem + (warp * RC + j) * kAbCols + c4) =
+          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+  }
+  __syncthreads();
+  for (int e = tid; e < kPart; e += kAbThreads) {  // the warps in warp order
+    float v = smem[e];
+#pragma unroll
+    for (int w = 1; w < kAbWarps; ++w) v += smem[w * kPart + e];
+    smem[e] = v;
+  }
+
+  // the slabs of the tile meet: cluster block z sums its share of the
+  // tile's outputs over the members in slab order, scales and writes them
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_splits = gridDim.x;  // the cluster
+  if (n_splits > 1) cluster.sync();  // every member's sums are in place
+  else __syncthreads();
+  const int share = (kPart + n_splits - 1) / n_splits;
+  const int e_end = min(kPart, (split + 1) * share);
+  for (int e = split * share + tid; e < e_end; e += kAbThreads) {
+    // outputs in the order of dA's (column, rank) or dB's (rank, column)
+    // storage, so neighbouring threads store to neighbouring addresses
+    const int j = is_a ? e % RC : e / kAbCols;
+    const int cc = is_a ? e / RC : e % kAbCols;
+    const int idx = j * kAbCols + cc;
+    float v = smem[idx];
+    if (n_splits > 1) {
+      float part[kAbMaxSplits];  // every member's load issued before the sum
+#pragma unroll
+      for (int z = 0; z < kAbMaxSplits; ++z)
+        part[z] = z < n_splits ? cluster.map_shared_rank(smem, z)[idx] : 0.f;
+      v = part[0];
+#pragma unroll
+      for (int z = 1; z < kAbMaxSplits; ++z)
+        if (z < n_splits) v += part[z];
+    }
+    const int r = r0 + j, c = c0 + cc;
+    if (r < R && c < C) {
+      if (is_a) da[static_cast<size_t>(c) * R + r] = v * s;
+      else db[static_cast<size_t>(r) * N + c] = v * s;
+    }
+  }
+  if (n_splits > 1) cluster.sync();  // no member leaves while it is read
 }
 
 // ---------------------------------------------------------------------------
@@ -686,25 +803,61 @@ int run(const void* in_, const void* w_, const void* down_, const void* up_,
   return last_error();
 }
 
-template <int RMAX>
-void launch_ab(const float* x, const float* g, const float* xa,
-               const float* dy, const float* scale, float* da, float* db,
-               int m, int k, int n, int r, cudaStream_t st) {
-  const int blocks_a = (k + kCols - 1) / kCols;
-  const int blocks_b = (n + kCols - 1) / kCols;
-  lora_grad_ab_kernel<RMAX><<<blocks_a + blocks_b, kThreads, 0, st>>>(
-      x, g, xa, dy, scale, da, db, m, k, n, r, blocks_a);
+// The dA/dB launch: one cluster of n_splits blocks along x per (tile, rank
+// chunk); *cluster backs cfg.attrs.
+inline cudaLaunchConfig_t ab_config(dim3 grid, cudaStream_t st,
+                                    cudaLaunchAttribute* cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kAbThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = grid.x;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
+template <int RC, bool VEC>
+int launch_ab(const float* x, const float* g, const float* xa,
+              const float* dy, const float* scale, float* da, float* db,
+              int m, int k, int n, int r, int n_splits, int rows_per_split,
+              cudaStream_t st) {
+  const int tiles_a = (k + kAbCols - 1) / kAbCols;
+  const int tiles_b = (n + kAbCols - 1) / kAbCols;
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = ab_config(
+      dim3(n_splits, tiles_a + tiles_b, (r + RC - 1) / RC), st, &cluster);
+  cudaLaunchKernelEx(&cfg, lora_grad_ab_kernel<RC, VEC>, x, g, xa, dy, scale,
+                     da, db, m, k, n, r, tiles_a, rows_per_split);
+  return last_error();
+}
+
+// Blocks of lora_grad_ab_kernel<RC, VEC> the card holds at once in
+// clusters of n_splits, or a negative CUDA error.
+template <int RC, bool VEC>
+int ab_slots(int n_splits) {
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = ab_config(dim3(n_splits, 1, 1), nullptr, &cluster);
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, lora_grad_ab_kernel<RC, VEC>, &cfg);
+  return err == cudaSuccess ? clusters * n_splits : -static_cast<int>(err);
+}
+
+// ranks in chunks of 8 (R <= 8) or 16
+template <bool VEC>
 int ab_rank(const float* x, const float* g, const float* xa, const float* dy,
             const float* scale, float* da, float* db, int m, int k, int n,
-            int r, cudaStream_t st) {
-  if (r <= 8) launch_ab<8>(x, g, xa, dy, scale, da, db, m, k, n, r, st);
-  else if (r <= 16) launch_ab<16>(x, g, xa, dy, scale, da, db, m, k, n, r, st);
-  else if (r <= 32) launch_ab<32>(x, g, xa, dy, scale, da, db, m, k, n, r, st);
-  else if (r <= 64) launch_ab<64>(x, g, xa, dy, scale, da, db, m, k, n, r, st);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+            int r, int n_splits, int rows_per_split, cudaStream_t st) {
+  if (r <= 8)
+    return launch_ab<8, VEC>(x, g, xa, dy, scale, da, db, m, k, n, r,
+                             n_splits, rows_per_split, st);
+  return launch_ab<16, VEC>(x, g, xa, dy, scale, da, db, m, k, n, r,
+                            n_splits, rows_per_split, st);
 }
 
 }  // namespace
@@ -756,19 +909,55 @@ extern "C" int lora_matmul_launch(const void* in, const void* w,
                             vec != 0, st);
 }
 
+// The blocks of the dA/dB kernel for rank chunk 8 or 16 that the card
+// holds at once in clusters of n_splits (1..8), the least over its two load
+// instantiations: cudaOccupancyMaxActiveClusters x n_splits. A cluster's
+// blocks share one GPC, so this can be less than two an SM. The plan
+// (kernels/lora_matmul.py::plan_grad_ab) counts its waves with it.
+// Negative: a CUDA error.
+extern "C" int lora_grad_ab_slots(int n_splits, int rank_chunk) {
+  if (n_splits < 1 || n_splits > kAbMaxSplits || (rank_chunk != 8 && rank_chunk != 16))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const bool c8 = rank_chunk == 8;
+  const int v = c8 ? ab_slots<8, true>(n_splits) : ab_slots<16, true>(n_splits);
+  const int e = c8 ? ab_slots<8, false>(n_splits) : ab_slots<16, false>(n_splits);
+  return v < 0 ? v : e < 0 ? e : v < e ? v : e;
+}
+
 // dA (K, R) = s * x^T g and dB (R, N) = s * xa^T dy; x (M, K), dy (M, N),
-// g and xa (M, R), all float32.
+// g and xa (M, R), all float32. The plan (kernels/lora_matmul.py::
+// plan_grad_ab): n_splits slabs of rows_per_split rows along M, one thread
+// block cluster (at most 8). vec: 16-byte loads (K and N multiples of 4, x
+// and dy 16-byte aligned); element loads otherwise.
 extern "C" int lora_grad_ab_launch(const void* x, const void* g,
                                    const void* xa, const void* dy,
                                    const void* scale, void* da, void* db,
-                                   int m, int k, int n, int r, int dtype,
+                                   int m, int k, int n, int r, int n_splits,
+                                   int rows_per_split, int vec, int dtype,
                                    void* stream) {
-  if (r < 1 || m < 0 || n < 0 || k < 0 || dtype != kDtypeF32)
+  if (r < 1 || r > 64 || m < 0 || n < 0 || k < 0 || dtype != kDtypeF32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (k == 0 && n == 0) return 0;
-  return ab_rank(static_cast<const float*>(x), static_cast<const float*>(g),
-                 static_cast<const float*>(xa), static_cast<const float*>(dy),
-                 static_cast<const float*>(scale), static_cast<float*>(da),
-                 static_cast<float*>(db), m, k, n, r,
-                 static_cast<cudaStream_t>(stream));
+  const bool covers = m == 0 ? n_splits == 1
+                             : rows_per_split > 0
+                                   && static_cast<long long>(n_splits) * rows_per_split >= m
+                                   && static_cast<long long>(n_splits - 1) * rows_per_split < m;
+  if (n_splits < 1 || n_splits > kAbMaxSplits || !covers
+      || (k + kAbCols - 1) / kAbCols + (n + kAbCols - 1) / kAbCols > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec && (k % 4 != 0 || n % 4 != 0 || !host_aligned16(x) || !host_aligned16(dy)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  const float* xaf = static_cast<const float*>(xa);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* s = static_cast<const float*>(scale);
+  float* daf = static_cast<float*>(da);
+  float* dbf = static_cast<float*>(db);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec)
+    return ab_rank<true>(xf, gf, xaf, dyf, s, daf, dbf, m, k, n, r, n_splits,
+                         rows_per_split, st);
+  return ab_rank<false>(xf, gf, xaf, dyf, s, daf, dbf, m, k, n, r, n_splits,
+                        rows_per_split, st);
 }

@@ -17,7 +17,9 @@ On CUDA the forward and dx run in two or three kernels: the bottleneck
 as R more reduction steps, over a reduction split chosen by
 ``plan_splits``, then, with more than one split, a merge of the split
 partials in split order. ``split_product_plain`` is that decomposition in
-plain PyTorch.
+plain PyTorch. dA/dB is one launch over slabs of rows planned by
+``plan_grad_ab``, whose sums meet in a fixed order inside a thread block
+cluster; ``lora_matmul_grad_ab_split_plain`` is that decomposition.
 """
 from __future__ import annotations
 
@@ -36,8 +38,16 @@ MAX_ROWS = 65535 * TILE[0]   # grid.y covers the row tiles
 MAX_SPLITS = 65535           # grid.z
 # Tile GEMM blocks an SM holds: 256 threads at the kernel's launch bounds
 # of 128 registers or fewer (two blocks take the 64 K-register file), 48
-# KB of shared memory each.
+# KB of shared memory each. The dA/dB kernel has the same launch bounds.
 BLOCKS_PER_SM = 2
+# The dA/dB kernel (csrc/lora_matmul.cu, lora_grad_ab_kernel): a block
+# sums a slab of rows of a tile of AB_COLS columns (16 lanes x 4) against
+# a chunk of 8 or 16 ranks, its 256 threads taking AB_SLAB rows a step;
+# the slabs of a tile form one thread block cluster, so at most
+# AB_MAX_SPLITS (the portable cluster size).
+AB_COLS = 64
+AB_SLAB = 16
+AB_MAX_SPLITS = 8
 
 
 def _check_factors(op: str, rows: int, k: int, n: int, a, b) -> None:
@@ -188,9 +198,126 @@ def _plan(m: int, n: int, k: int, sms: int) -> SplitPlan:
     return best[1] if best else split_plan(m, n, k, 1)
 
 
+def rank_chunk(r: int) -> int:
+    """The ranks the dA/dB kernel takes a block: 8 for r <= 8, else 16."""
+    return 8 if r <= 8 else 16
+
+
+@dataclasses.dataclass(frozen=True)
+class GradABPlan:
+    """The dA/dB kernel's grid for x (m, k), dy (m, n) and rank r: the
+    rows in ``n_splits`` slabs of ``rows_per_split`` (a multiple of
+    AB_SLAB; the last may be shorter), each column tile of dA and dB, and
+    the ranks in chunks of 8 (r <= 8) or 16."""
+    m: int
+    k: int
+    n: int
+    r: int
+    n_splits: int
+    rows_per_split: int
+
+    @property
+    def rank_chunk(self) -> int:
+        return rank_chunk(self.r)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.r // self.rank_chunk)
+
+    @property
+    def tiles_a(self) -> int:
+        return -(-self.k // AB_COLS)
+
+    @property
+    def tiles_b(self) -> int:
+        return -(-self.n // AB_COLS)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_splits * (self.tiles_a + self.tiles_b) * self.chunks
+
+    def bounds(self) -> List[Tuple[int, int]]:
+        """Each slab's rows [lo, hi), in slab order."""
+        per = self.rows_per_split
+        return [(s * per, min(self.m, (s + 1) * per))
+                for s in range(self.n_splits)]
+
+
+def grad_ab_plan(m: int, k: int, n: int, r: int, n_splits: int
+                 ) -> GradABPlan:
+    """The rows cut into at most ``n_splits`` slabs of whole steps (fewer
+    where the rows run out)."""
+    if m == 0:
+        return GradABPlan(0, k, n, r, 1, 0)
+    per = -(-m // n_splits)
+    per = -(-per // AB_SLAB) * AB_SLAB
+    return GradABPlan(m, k, n, r, -(-m // per), per)
+
+
+def plan_grad_ab(m: int, k: int, n: int, r: int,
+                 slots: Sequence[int]) -> GradABPlan:
+    """The slabs of one dA/dB call, from ints alone (never a device
+    tensor): x (m, k), dy (m, n), rank r, and ``slots``, the blocks the
+    card holds at once in clusters of 1..AB_MAX_SPLITS slabs
+    (``cluster_slots``). The blocks of a plan of s slabs run in waves of
+    slots[s - 1], so a call takes about ceil(blocks / slots[s - 1]) x
+    rows_per_split row times (``grad_ab_cost``): among the cuts into whole
+    steps into clusters the card can hold, the least of that; ties go to
+    fewer slabs."""
+    for name, v in (("m", m), ("k", k), ("n", n), ("r", r)):
+        if type(v) is not int:
+            raise TypeError(f"plan_grad_ab: {name} must be an int, got "
+                            f"{type(v).__name__}")
+    slots = tuple(slots)
+    if len(slots) != AB_MAX_SPLITS or any(type(v) is not int
+                                          for v in slots):
+        raise TypeError(f"plan_grad_ab: slots must be {AB_MAX_SPLITS} "
+                        f"ints, got {slots}")
+    if slots[0] < 1:
+        raise ValueError(f"plan_grad_ab: the card holds no block ({slots})")
+    return _plan_ab(m, k, n, r, slots)
+
+
+def grad_ab_cost(plan: GradABPlan, slots: Sequence[int]) -> float:
+    """A plan's waves of blocks times its rows a slab (a cluster size the
+    card cannot hold costs without bound)."""
+    held = slots[plan.n_splits - 1]
+    if held < plan.n_splits:
+        return float("inf")
+    return -(-plan.blocks // held) * plan.rows_per_split
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_ab(m: int, k: int, n: int, r: int, slots: Tuple[int, ...]
+             ) -> GradABPlan:
+    best = grad_ab_plan(m, k, n, r, 1)
+    cost = grad_ab_cost(best, slots)
+    for splits in range(2, min(-(-m // AB_SLAB), AB_MAX_SPLITS) + 1):
+        plan = grad_ab_plan(m, k, n, r, splits)
+        if plan.n_splits == splits and grad_ab_cost(plan, slots) < cost:
+            best, cost = plan, grad_ab_cost(plan, slots)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(lib, index: int, chunk: int) -> Tuple[int, ...]:
+    """The blocks of the dA/dB kernel (rank chunk 8 or 16) that CUDA device
+    ``index`` holds at once in clusters of 1..AB_MAX_SPLITS slabs, as the
+    runtime reports them (cudaOccupancyMaxActiveClusters); asked once per
+    library, device and chunk."""
+    with torch.cuda.device(index):
+        got = tuple(lib.lora_grad_ab_slots(c, chunk)
+                    for c in range(1, AB_MAX_SPLITS + 1))
+    if any(v < 0 for v in got):
+        raise RuntimeError(f"lora_grad_ab_slots failed: CUDA error "
+                           f"{-min(got)}")
+    return got
+
+
 def vector_loads(element_size: int, k: int, n: int,
                  ptrs: Sequence[int]) -> bool:
-    """Whether the tile GEMM may use 16-byte loads and stores: the
+    """Whether the tile GEMM (and the dA/dB kernel, whose k and n are
+    x's and dy's widths) may use 16-byte loads and stores: the
     reduction depth k and the output width n multiples of the elements in
     16 bytes, and every operand's address (ints) 16-byte aligned. The
     launcher passes the result; the kernel with element loads does the
@@ -273,6 +400,19 @@ def lora_matmul_grad_ab_plain(x, xa, dy, g, scale
     da = scale * (_acc(x).T @ g)
     db = scale * (xa.T @ _acc(dy))
     return da.to(x.dtype), db.to(dy.dtype)
+
+
+def lora_matmul_grad_ab_split_plain(x, xa, dy, g, scale, plan: GradABPlan
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dA, dB) as the CUDA kernel decomposes them under ``plan``: one
+    partial per slab of rows, the partials summed in slab order, then
+    scaled."""
+    xf, dyf = _acc(x), _acc(dy)
+    da = db = None
+    for lo, hi in plan.bounds():
+        pa, pb = xf[lo:hi].T @ g[lo:hi], xa[lo:hi].T @ dyf[lo:hi]
+        da, db = (pa, pb) if da is None else (da + pa, db + pb)
+    return (scale * da).to(x.dtype), (scale * db).to(dy.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -367,18 +507,28 @@ def launch_dx(lib, dy, w0, a, b, scale, need_dx: bool = True,
     return dx, g
 
 
-def launch_grad_ab(lib, x, xa, dy, g, scale):
-    """The dA/dB reduction kernel: (dA (K, R), dB (R, N))."""
+def launch_grad_ab(lib, x, xa, dy, g, scale,
+                   plan: Optional[GradABPlan] = None):
+    """The dA/dB reduction kernel: (dA (K, R), dB (R, N)). ``plan``
+    (default ``plan_grad_ab``) names the slabs, as for ``launch``."""
     code = _build.check_cuda_args("lora_matmul_grad_ab", (x, dy))
     _check_f32("lora_matmul_grad_ab", x, xa, g, scale)
     m, k = x.shape
     n, r = dy.shape[1], xa.shape[1]
+    if plan is None:
+        plan = plan_grad_ab(m, k, n, r, cluster_slots(
+            lib, x.device.index, rank_chunk(r)))
+    elif (plan.m, plan.k, plan.n, plan.r) != (m, k, n, r):
+        raise ValueError(f"plan for {(plan.m, plan.k, plan.n, plan.r)} "
+                         f"given for {(m, k, n, r)}")
     da = torch.empty((k, r), dtype=x.dtype, device=x.device)
     db = torch.empty((r, n), dtype=dy.dtype, device=x.device)
+    vec = vector_loads(4, k, n, (x.data_ptr(), dy.data_ptr()))
     with torch.cuda.device(x.device):
         rc = lib.lora_grad_ab_launch(
             x.data_ptr(), g.data_ptr(), xa.data_ptr(), dy.data_ptr(),
-            scale.data_ptr(), da.data_ptr(), db.data_ptr(), m, k, n, r, code,
+            scale.data_ptr(), da.data_ptr(), db.data_ptr(), m, k, n, r,
+            plan.n_splits, plan.rows_per_split, int(vec), code,
             _build.stream_of(x))
     _build.check(rc, "lora_matmul_grad_ab")
     return da, db

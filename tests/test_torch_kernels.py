@@ -360,6 +360,15 @@ class _RecordingLib:
         self.calls.setdefault("lora_matmul_launch", []).append(args)
         return 0
 
+    def lora_grad_ab_launch(self, *args):
+        self.calls.setdefault("lora_grad_ab_launch", []).append(args)
+        return 0
+
+    def lora_grad_ab_slots(self, n_splits, rank_chunk):
+        self.calls.setdefault("lora_grad_ab_slots", []).append(
+            (n_splits, rank_chunk))
+        return H100_SLOTS[n_splits - 1]
+
 
 def _no_host_read(*_args, **_kw):
     raise AssertionError("the launch path read a tensor on the host")
@@ -813,3 +822,225 @@ def test_lora_launcher_picks_element_loads_for_unaligned_operands(
         lora_mod.launch(lib, aligned(37, 64), aligned(64, 96),
                         torch.zeros(64, 4), torch.zeros(4, 96), s,
                         plan=lora_mod.plan_splits(38, 96, 64, 132))
+
+
+# The dA/dB kernel of the CUDA lora_matmul backward: its plan (slabs of
+# rows, from ints), the plain model of its decomposition, and its launcher.
+
+# Blocks of the dA/dB kernel an H100 80GB HBM3 holds at once in clusters of
+# 1..8 slabs, as its runtime reports them (lora_grad_ab_slots, both rank
+# chunks): fewer than two an SM (264) where clusters do not pack the GPCs.
+H100_SLOTS = (264, 264, 237, 248, 235, 234, 224, 240)
+
+
+def _even_slots(sms):
+    """The blocks a card of ``sms`` SMs would hold in clusters of 1..8 if
+    every cluster packed: two an SM (the kernel's launch bounds)."""
+    return (lora_mod.BLOCKS_PER_SM * sms,) * lora_mod.AB_MAX_SPLITS
+
+# a card's cluster capacities: each cluster size holds whole clusters
+_slots = st.one_of(
+    st.sampled_from([_even_slots(s) for s in (1, 7, 132, 144)]
+                    + [H100_SLOTS]),
+    st.tuples(*[st.integers(min_value=1 if c == 1 else 0,
+                            max_value=40).map(lambda v, c=c: v * c)
+                for c in range(1, lora_mod.AB_MAX_SPLITS + 1)]))
+
+
+@settings(max_examples=80, deadline=None)
+@given(m=st.integers(min_value=0, max_value=5000),
+       k=st.integers(min_value=0, max_value=2100),
+       n=st.integers(min_value=0, max_value=2100),
+       r=st.integers(min_value=1, max_value=lora_mod.MAX_RANK),
+       slots=_slots)
+def test_grad_ab_plan_covers_each_row_and_column_once(m, k, n, r, slots):
+    plan = lora_mod.plan_grad_ab(m, k, n, r, slots)
+    rows = [i for lo, hi in plan.bounds() for i in range(lo, hi)]
+    assert rows == list(range(m))                 # every row once, in order
+    if m:
+        assert all(hi > lo for lo, hi in plan.bounds())   # no empty slab
+        assert plan.rows_per_split % lora_mod.AB_SLAB == 0
+    else:
+        assert plan.bounds() == [(0, 0)]
+    assert 1 <= plan.n_splits <= lora_mod.AB_MAX_SPLITS
+    assert plan.n_splits == 1 or slots[plan.n_splits - 1] >= plan.n_splits
+    for width, tiles in ((k, plan.tiles_a), (n, plan.tiles_b)):
+        cols = np.zeros(width, dtype=np.int32)    # dA's rows, dB's columns
+        for t in range(tiles):
+            assert t * lora_mod.AB_COLS < width   # no empty tile
+            cols[t * lora_mod.AB_COLS:(t + 1) * lora_mod.AB_COLS] += 1
+        assert (cols == 1).all()
+    ranks = np.zeros(r, dtype=np.int32)
+    for c in range(plan.chunks):
+        assert c * plan.rank_chunk < r
+        ranks[c * plan.rank_chunk:(c + 1) * plan.rank_chunk] += 1
+    assert (ranks == 1).all() and plan.rank_chunk in (8, 16)
+    assert plan.blocks == plan.n_splits * (plan.tiles_a + plan.tiles_b) \
+        * plan.chunks
+    # no other cut into whole steps takes fewer waves x rows; none of fewer
+    # slabs as few
+    cost = lora_mod.grad_ab_cost(plan, slots)
+    for splits in range(1, min(-(-m // lora_mod.AB_SLAB),
+                               lora_mod.AB_MAX_SPLITS) + 1):
+        other = lora_mod.grad_ab_plan(m, k, n, r, splits)
+        assert lora_mod.grad_ab_cost(other, slots) >= cost
+        if other.n_splits < plan.n_splits:
+            assert lora_mod.grad_ab_cost(other, slots) > cost
+
+
+@pytest.mark.parametrize("shape,want,even", [
+    # (m, k, n, r) -> (slabs, rows a slab, blocks) with the H100's cluster
+    # capacities, and the slabs were every cluster to pack (two blocks an
+    # SM on 132 SMs)
+    ((512, 1024, 1024, 8), (7, 80, 224), 8),   # RoBERTa-large q/v training:
+                                               # 256 blocks of 8 > 240 held
+    ((500, 1000, 1000, 13), (7, 80, 224), 8),  # phase 3's ragged shape ...
+    ((500, 1000, 1000, 29), (7, 80, 448), 4),  # ... 2 rank chunks
+    ((500, 1000, 1000, 64), (2, 256, 256), 2),  # ... 4 rank chunks
+    ((37, 999, 1001, 5), (3, 16, 96), 3),      # the element-load shape
+    ((4096, 1024, 1024, 8), (7, 592, 224), 8),
+    ((1, 2048, 2048, 8), (1, 16, 64), 1),      # fewer rows than a step
+    ((0, 24, 40, 3), (1, 0, 2), 1),            # no rows: zeros written
+])
+def test_grad_ab_plan_at_the_checked_shapes(shape, want, even):
+    """The plans phase 3 of chip_smoke.py runs on an H100."""
+    plan = lora_mod.plan_grad_ab(*shape, H100_SLOTS)
+    assert (plan.n_splits, plan.rows_per_split, plan.blocks) == want
+    assert lora_mod.plan_grad_ab(*shape, _even_slots(132)
+                                 ).n_splits == even
+
+
+def test_grad_ab_plan_takes_ints_only():
+    """The plan is made on the host from sizes and the card's counts: a
+    device value is refused rather than read."""
+    for args in ((torch.tensor(512), 1024, 1024, 8, H100_SLOTS),
+                 (512, np.int64(1024), 1024, 8, H100_SLOTS),
+                 (512, 1024, 1024, 8.0, H100_SLOTS),
+                 (512, 1024, 1024, 8, (264.0,) * 8),
+                 (512, 1024, 1024, 8, tuple(torch.tensor(H100_SLOTS))),
+                 (512, 1024, 1024, 8, H100_SLOTS[:4])):
+        with pytest.raises(TypeError, match="must be"):
+            lora_mod.plan_grad_ab(*args)
+    with pytest.raises(ValueError, match="holds no block"):
+        lora_mod.plan_grad_ab(512, 1024, 1024, 8, (0,) * 8)
+
+
+@settings(max_examples=40, deadline=None)
+@given(m=st.integers(min_value=0, max_value=300),
+       k=st.integers(min_value=1, max_value=150),
+       n=st.integers(min_value=1, max_value=150),
+       r=st.integers(min_value=1, max_value=lora_mod.MAX_RANK),
+       data=st.data())
+def test_grad_ab_split_decomposition_equals_the_plain_version(m, k, n, r,
+                                                              data):
+    """The dA/dB kernel's arithmetic in plain PyTorch (a partial per slab of
+    rows, summed in slab order, then scaled) equals
+    ``lora_matmul_grad_ab_plain`` for the plan and for every slab count
+    the kernel takes, within float32 reordering of the row sums (TOL);
+    the rank directions past the client's rank (g's and xa's masked
+    columns) get exactly zero gradient on both sides."""
+    rank = data.draw(st.integers(min_value=1, max_value=r), label="rank")
+    rng = np.random.default_rng(m * 7919 + k * 31 + n + r)
+    x, dy = (_t(rng.standard_normal(shape, dtype=np.float32))
+             for shape in ((m, k), (m, n)))
+    xa, g = (_t(rng.standard_normal((m, r), dtype=np.float32))
+             for _ in range(2))
+    xa[:, rank:] = 0.0
+    g[:, rank:] = 0.0
+    s = torch.tensor(16.0 / rank)
+    da_ref, db_ref = lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, s)
+    plans = [lora_mod.plan_grad_ab(m, k, n, r, slots)
+             for slots in (_even_slots(1), H100_SLOTS)]
+    plans += [lora_mod.grad_ab_plan(m, k, n, r, sp)
+              for sp in range(1, lora_mod.AB_MAX_SPLITS + 1)]
+    scale = max(1.0, float(da_ref.abs().max()), float(db_ref.abs().max()))
+    for plan in plans:
+        da, db = lora_mod.lora_matmul_grad_ab_split_plain(x, xa, dy, g, s,
+                                                          plan)
+        torch.testing.assert_close(da, da_ref, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale)
+        torch.testing.assert_close(db, db_ref, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale)
+        assert not bool(da[:, rank:].any()) and not bool(db[rank:].any())
+    assert not bool(da_ref[:, rank:].any()) and not bool(db_ref[rank:].any())
+
+
+@pytest.mark.parametrize("m,k,n,r", [(37, 50, 70, 5), (70, 33, 130, 13),
+                                     (20, 48, 16, 29)])
+def test_grad_ab_split_plain_matches_the_reference_vjp(m, k, n, r):
+    """dA and dB of the split decomposition, under the plan and under 8
+    slabs, against ``jax.vjp`` of the reference's ``lora_matmul_ref`` in
+    A and B, from the same numpy inputs."""
+    import jax
+    x, w0, a, b = _lora_inputs(m + k + n + r, m, k, n, r)
+    dy = np.random.default_rng(r).standard_normal((m, n)).astype(np.float32)
+    scale = 16.0 / r
+    _, vjp = jax.vjp(lambda aa, bb: jref.lora_matmul_ref(
+        jnp.asarray(x), jnp.asarray(w0), aa, bb, scale), jnp.asarray(a),
+        jnp.asarray(b))
+    da_j, db_j = (np.asarray(t) for t in vjp(jnp.asarray(dy)))
+    xt, at, bt, dyt = (_t(v) for v in (x, a, b, dy))
+    xa, g = xt @ at, dyt @ bt.T
+    for plan in (lora_mod.plan_grad_ab(m, k, n, r, H100_SLOTS),
+                 lora_mod.grad_ab_plan(m, k, n, r, 8)):
+        da, db = lora_mod.lora_matmul_grad_ab_split_plain(
+            xt, xa, dyt, g, torch.tensor(scale), plan)
+        np.testing.assert_allclose(da.numpy(), da_j, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(db.numpy(), db_j, rtol=1e-4, atol=1e-4)
+
+
+def test_grad_ab_launcher_passes_the_plan_and_picks_element_loads(
+        monkeypatch):
+    """The dA/dB launcher plans with the library's cluster capacities
+    (asked once per rank chunk), passes the plan's slabs and 16-byte loads
+    only for K and N multiples of 4 with x and dy 16-byte aligned; it
+    allocates dA and dB alone (the slabs meet in the cluster: no scratch)
+    and refuses a plan made for another shape. Checked on the host with a
+    stand-in library (no card)."""
+    monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **k: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a)
+                        or empty(*a, **k))
+    s = torch.tensor(2.0)
+    lib = _RecordingLib()
+
+    def aligned(m, k, off=0):
+        t = empty(m * k + 8)
+        skip = (-t.data_ptr() % 16) // 4 + off
+        return t[skip:skip + m * k].view(m, k)
+
+    cases = [  # (x offset, dy offset, K, N) -> 16-byte loads
+        (0, 0, 64, 96, 1),
+        (0, 0, 63, 96, 0),       # K not a multiple of 4
+        (0, 0, 64, 99, 0),       # N not a multiple of 4
+        (1, 0, 64, 96, 0),       # x 4 bytes past 16
+        (0, 2, 64, 96, 0),       # dy 8 bytes past 16
+    ]
+    for xo, dyo, k, n, want in cases:
+        made.clear()
+        da, db = lora_mod.launch_grad_ab(lib, aligned(37, k, xo),
+                                         torch.zeros(37, 5),
+                                         aligned(37, n, dyo),
+                                         torch.zeros(37, 5), s)
+        assert tuple(da.shape) == (k, 5) and tuple(db.shape) == (5, n)
+        assert made == [((k, 5),), ((5, n),)]
+        args = lib.calls["lora_grad_ab_launch"][-1]
+        assert all(isinstance(v, int) for v in args)
+        plan = lora_mod.plan_grad_ab(37, k, n, 5, H100_SLOTS)
+        assert args[7:] == (37, k, n, 5, plan.n_splits,
+                            plan.rows_per_split, want, 0, 0)
+    assert lib.calls["lora_grad_ab_slots"] == [(c, 8) for c in range(1, 9)]
+    other = lora_mod.grad_ab_plan(37, 64, 96, 5, 1)
+    lora_mod.launch_grad_ab(lib, aligned(37, 64), torch.zeros(37, 5),
+                            aligned(37, 96), torch.zeros(37, 5), s,
+                            plan=other)
+    assert lib.calls["lora_grad_ab_launch"][-1][11:13] == (1, 48)
+    with pytest.raises(ValueError, match="plan for"):
+        lora_mod.launch_grad_ab(lib, aligned(37, 64), torch.zeros(37, 5),
+                                aligned(37, 96), torch.zeros(37, 5), s,
+                                plan=lora_mod.plan_grad_ab(38, 64, 96, 5,
+                                                           H100_SLOTS))
