@@ -13,8 +13,12 @@ Phases, each of which raises on failure:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    full-width Gemma-2B serving (RoBERTa-large training for lora_matmul)
    gives it, in float32 and bfloat16, with kernel, plain and library
-   times; flash_attention also with the same bits on a second call, at
-   the last chunk of a 2k-token prompt, and in every other variant built
+   times; bgmv also at B 1, two ragged shapes and ranks 13, 29 and 64, on
+   slots out of range (-1, S and -S-1, taken the reference's way), each
+   with its plan, its registers and the same bits on a second call, and at
+   another split count; flash_attention also with the same bits on a
+   second call, at the last chunk of a 2k-token prompt, and in every other
+   variant built
    (head dims 64 and 128, element-wise staging, one split without the
    merge), its library time the faster of two SDPA calls with the kernels
    each ran; the paged decode and verify kernels with the same bits on a
@@ -197,36 +201,129 @@ def compare_scaled(name, got, want, rel: float, why: str) -> float:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+# Phase 3's bgmv cases: (label, B, d_in, d_out, R). Gemma-2B's decode
+# projections (q/o 2048 -> 2048, k/v 2048 -> 256) at B 8 and B 1, two ragged
+# shapes (the second takes element loads of x, B and y), and R 13, 29 and
+# 64, so that every rank template runs (13 and 29 with element loads of A);
+# the last puts a warp's 32 lanes on one column vector (element loads of B
+# at R 64, a vector or two a block).
+BGMV_CASES = [
+    ("decode q/o", 8, 2048, 2048, 8),
+    ("decode k/v", 8, 2048, 256, 8),
+    ("B 1, q/o", 1, 2048, 2048, 8),
+    ("B 1, k/v", 1, 2048, 256, 8),
+    ("ragged", 8, 2000, 1000, 8),
+    ("ragged, element loads", 8, 1999, 1001, 8),
+    ("R 13", 8, 2048, 256, 13),
+    ("R 29", 8, 2048, 256, 29),
+    ("R 64, k/v", 8, 2048, 256, 64),
+    ("R 64, q/o", 8, 2048, 2048, 64),
+    ("R 64, 9 columns", 8, 2048, 9, 64),
+]
+# Row i's slot among S = 4: -1, S and -S-1 (taken the reference's way, as
+# 3, 3 and 0) beside slots in range; a batch of one takes -1.
+BGMV_IDX = (-1, 1, 4, 2, -5, 3, 3, 0)
+# The engine's slots at the decode shapes (rows sorted by slot).
+BGMV_ENGINE_IDX = (0, 0, 1, 1, 2, 2, 3, 3)
+
+
+def bgmv_plan_line(bgmv_mod, plan, slots, esize, vec) -> str:
+    """The plan of one bgmv call, its 16-byte loads (``vec``, the
+    launcher's bits), the waves the card's cluster capacity gives it, and
+    the ptxas registers and spills of the kernel instantiation it
+    launches."""
+    tname = "f" if esize == 4 else "13__nv_bfloat16"
+    entry = f"bgmv_kernelI{tname}Li{bgmv_mod.rank_template(plan.r)}E"
+    found = [ln.replace("ptxas info    : ", "") for e, ln in ptxas_lines()
+             if e == entry]
+    held = slots[plan.n_splits - 1]
+    lanes = bgmv_mod.column_lanes(plan.cols_per_split, plan.r, esize,
+                                  bool(vec & bgmv_mod.VEC_B))
+    loads = ", ".join(f"{name} {'16-byte' if vec & bit else 'element'}"
+                      for name, bit in (("x", bgmv_mod.VEC_X),
+                                        ("A", bgmv_mod.VEC_A),
+                                        ("B and y", bgmv_mod.VEC_B)))
+    return (f"plan: {plan.n_splits} splits of {plan.rows_per_split} rows "
+            f"(one cluster of {plan.n_splits} a row), {plan.cols_per_split} "
+            f"columns a block ({lanes} lanes a column vector), "
+            f"{plan.blocks} blocks (the card holds {held} in clusters of "
+            f"{plan.n_splits}: {-(-plan.blocks // held)} wave(s)), "
+            f"{bgmv_mod.bgmv_trips(plan, esize)} round trips after idx on "
+            f"the 16-byte path; loads: {loads}; {entry}: "
+            f"{' / '.join(found) or 'not in this build log'}")
+
+
 def check_bgmv(torch, ops, bgmv_mod, gen) -> dict:
-    log("bgmv (decode LoRA gather: B=8, S=4, R=8, d_in 2048):")
-    row = None
-    idx = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32,
-                       device="cuda")
-    mask = (torch.arange(8, device="cuda")[None, :]
-            < torch.tensor([2, 4, 6, 8], device="cuda")[:, None]).float()
+    """bgmv against its plain version at BGMV_CASES, float32 and bf16, on
+    BGMV_IDX's slots, each the same bits twice and also at another split
+    count (through ``launch(..., plan=)``, not counted); at the decode
+    shapes also on the engine's slots, timed with the plain version."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    log("bgmv (decode LoRA gather, S = 4 slots; a cluster of plan_bgmv's "
+        "splits a row):")
     for dtype in (torch.float32, torch.bfloat16):
-        for d_out in (2048, 256):
-            x = torch.randn(8, 2048, generator=gen, device="cuda").to(dtype)
-            a = (torch.randn(4, 2048, 8, generator=gen, device="cuda")
-                 / math.sqrt(2048) * mask[:, None, :]).to(dtype)
-            b = (0.05 * torch.randn(4, 8, d_out, generator=gen,
+        code = _build.DTYPE_CODES[dtype]
+        log(f"  blocks the card holds in clusters of 1..8, {str(dtype)[6:]}: "
+            + "; ".join(f"R {r}: {bgmv_mod.cluster_slots(lib, 0, r, code)}"
+                        for r in (8, 16, 32, 64)))
+    row, timed = None, []
+    for label, bsz, d_in, d_out, r in BGMV_CASES:
+        ranks = torch.tensor([max(1, r * q // 4) for q in (1, 2, 3, 4)],
+                             device="cuda")
+        mask = (torch.arange(r, device="cuda")[None, :]
+                < ranks[:, None]).float()
+        idx = torch.tensor(BGMV_IDX[:bsz], dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(bsz, d_in, generator=gen, device="cuda").to(dtype)
+            a = (torch.randn(4, d_in, r, generator=gen, device="cuda")
+                 / math.sqrt(d_in) * mask[:, None, :]).to(dtype)
+            b = (0.05 * torch.randn(4, r, d_out, generator=gen,
                                     device="cuda")).to(dtype)
+            esize = x.element_size()
+            slots = bgmv_mod.cluster_slots(lib, 0, r,
+                                           _build.DTYPE_CODES[dtype])
+            plan = bgmv_mod.plan_bgmv(bsz, d_in, r, d_out, slots, esize)
+            name = f"{label} ({bsz}, {d_in}, {d_out}, R {r}) {str(dtype)[6:]}"
             want = bgmv_mod.bgmv_plain(x, a, b, idx)
             got = ops.bgmv(x, a, b, idx)
-            err = compare(f"{dtype} d_out={d_out}", got, want)
-            ms = time_ms(lambda: ops.bgmv(x, a, b, idx))
-            plain_ms = time_ms(lambda: bgmv_mod.bgmv_plain(x, a, b, idx))
-            slots = len(set(idx.tolist()))
-            moved = (nbytes(x, idx) + x.shape[0] * d_out * x.element_size()
-                     + slots * (2048 * 8 + 8 * d_out) * x.element_size())
-            ops_n = 2 * 8 * (2048 * 8 + 8 * d_out)
-            bd = bound(moved, ops_n, dtype)
+            vec = bgmv_mod.vector_flags(esize, d_in, r, d_out, (
+                x.data_ptr(), a.data_ptr(), b.data_ptr(), got.data_ptr()))
+            log(f"  {name}: "
+                f"{bgmv_plan_line(bgmv_mod, plan, slots, esize, vec)}")
+            compare(f"  slots {idx.tolist()}", got, want)
+            same_bits(name, got, lambda: ops.bgmv(x, a, b, idx))
+            other = bgmv_mod.bgmv_plan(bsz, d_in, r, d_out,
+                                       1 if plan.n_splits > 1 else 4)
+            if other != plan:
+                call = lambda: bgmv_mod.launch(lib, x, a, b, idx, plan=other)
+                got = call()
+                compare(f"  {other.n_splits} splits of "
+                        f"{other.rows_per_split}", got, want)
+                same_bits(f"{name}, {other.n_splits} splits", got, call)
+            if not label.startswith("decode"):
+                continue
+            eidx = torch.tensor(BGMV_ENGINE_IDX, dtype=torch.int32,
+                                device="cuda")
+            want = bgmv_mod.bgmv_plain(x, a, b, eidx)
+            err = compare(f"  the engine's slots {eidx.tolist()}",
+                          ops.bgmv(x, a, b, eidx), want)
+            ms = time_ms(lambda: ops.bgmv(x, a, b, eidx))
+            plain_ms = time_ms(lambda: bgmv_mod.bgmv_plain(x, a, b, eidx))
+            moved = (nbytes(x, eidx) + bsz * d_out * esize
+                     + len(set(BGMV_ENGINE_IDX)) * (d_in * r + r * d_out)
+                     * esize)
+            bd = bound(moved, 2 * bsz * (d_in * r + r * d_out), dtype)
             log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
-                f"(no single PyTorch call) bound_ms {bd['bound_ms']:.5f} "
+                f"(no single PyTorch call) bound_ms {bd['bound_ms']:.6f} "
                 f"({bd['bound_by']})")
-            if dtype == torch.float32 and d_out == 2048:
-                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": None, **bd}
+            if dtype == torch.float32:
+                timed.append(f"d_out {d_out}: ms {ms:.4f}, plain_ms "
+                             f"{plain_ms:.4f}, bound_ms {bd['bound_ms']:.6f}")
+                if d_out == 2048:
+                    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": None, **bd}
+    log(f"  bgmv row (float32, B 8, d_in 2048, R 8): {'; '.join(timed)}")
     return row
 
 

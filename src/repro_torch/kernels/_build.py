@@ -29,9 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # extern "C" launchers: name -> argument kinds ("p" pointer, "i" int,
 # "f" float). Every launcher returns cudaGetLastError() as an int;
-# lora_grad_ab_slots returns a count of blocks (negative: a CUDA error).
+# bgmv_slots and lora_grad_ab_slots return a count of blocks (negative: a
+# CUDA error).
 SIGNATURES: Dict[str, str] = {
-    "bgmv_launch": "ppppp" + "iiiiii" + "p",
+    "bgmv_launch": "ppppp" + "iiiiiiiiii" + "p",
+    "bgmv_slots": "iii",
     "paged_attn_launch": "ppppppp" + "iiiiii" + "ii" + "f" + "i" + "p",
     "flash_attn_launch": "ppppipp" + "iiiiiiii" + "iiii" + "f" + "i" + "p",
     "paged_verify_launch": "pppppppp" + "iiiiiii" + "ii" + "f" + "i" + "p",

@@ -46,8 +46,10 @@ def _on_cpu(t: torch.Tensor, op: str) -> bool:
 def bgmv(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
          idx: torch.Tensor) -> torch.Tensor:
     """Multi-LoRA decode gather: y[i] = x[i] @ A[idx[i]] @ B[idx[i]].
-    x: (B, d_in), a: (S, d_in, R), b: (S, R, d_out), idx: (B,) int32. Rank
-    masks and the alpha/r_eff scale are the caller's business."""
+    x: (B, d_in), a: (S, d_in, R), b: (S, R, d_out), idx: (B,) int32; S
+    must be at least 1, and a slot outside [0, S) is taken the reference's
+    way (``bgmv.slot_index``). Rank masks and the alpha/r_eff scale are
+    the caller's business."""
     _bgmv.validate(x, a, b, idx)
     if _on_cpu(x, "bgmv"):
         return _bgmv.bgmv_plain(x, a, b, idx)
