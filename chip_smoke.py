@@ -66,7 +66,23 @@ Phases, each of which raises on failure:
    exactly once per exact or randomized call and never otherwise, and
    exact on shape groups of one target over a layer stack against the CPU;
    each method's time, and exact's split between the kernel and the SVD;
-8. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+8. the synchronous round: ``run_experiment`` (``FedSession`` +
+   ``SyncRound``) on phase 6's base, 16 clients and 4 a round, for 3
+   rounds of hlora ``factored`` with random ranks in [2, 8], then 2 rounds
+   each of naive, flora, and hlora ``randomized`` under the spectrum
+   policy with per-target ranks; every round checked on its way: (a) each
+   message's measured bytes against its header and payload and the
+   payload against the ranks, the history's byte columns against the
+   messages'; (b) each message decoding bit for bit and unpacking to the
+   slice sent; (c) after each hlora round, each client's effective update
+   from its broadcast against the rank-r_k truncation of the global and of
+   dW' in float64 (phase 7's limits); (d) the launch counts of every
+   round (48 of each lora kernel a step, 48 forward for the eval,
+   recon_agg once a randomized round); (e) finite losses and eval
+   metrics; (f) the adapted ranks against the energy rule recomputed from
+   the spectrum; each round's time split into broadcast, train, collect,
+   aggregate and eval, one profiled round, peak memory;
+9. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1302,6 +1318,14 @@ def train_group(key: str) -> str:
 
 
 def profile_window(torch, label, fn, group=serve_group) -> list:
+    """``fn`` under torch.profiler: the device-busy share of its wall time
+    (the sum of the traced kernels, copies and fills over the host time
+    of the call) and device time by group and by kernel. The device events
+    are read from the exported trace, which the profiler writes from its
+    C++ side: ``key_averages`` builds a Python object an event and spent
+    ~95 s on a federated round's events. Returns (name, ms, launches) per
+    kernel, the largest first."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1310,23 +1334,31 @@ def profile_window(torch, label, fn, group=serve_group) -> list:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages()
-              if e.device_type == cuda and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    by_kernel = {}
+    for e in trace:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms, n = by_kernel.get(e["name"], (0.0, 0))
+            by_kernel[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    if not by_kernel:
+        raise AssertionError(f"profiled {label}: no device events traced")
+    events = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()),
+                    key=lambda e: -e[1])
+    device_ms = sum(ms for _, ms, _ in events)
     by_group = {}
-    for e in events:
-        g = group(e.key)
-        by_group[g] = by_group.get(g, 0.0) + e.self_device_time_total / 1e3
-    events.sort(key=lambda e: -e.self_device_time_total)
+    for key, ms, _ in events:
+        by_group[group(key)] = by_group.get(group(key), 0.0) + ms
     log(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
         f"{device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f}% of "
         f"wall); device ms by group: "
         + ", ".join(f"{g} {v:.2f}" for g, v in by_group.items()))
-    for e in events[:10]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
-    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
+    for key, ms, n in events[:10]:
+        log(f"    {ms:9.3f} ms  {n:6d}x  {key[:90]}")
+    return events
 
 
 # ---------------------------------------------------------------------------
@@ -1455,7 +1487,8 @@ def rel_err(got, want) -> float:
 def run_training(torch, np) -> tuple:
     """Phase 6. Returns the lora kernels' launches in the cohort call and
     the trained cohort on the card (config, factors, masks, shard sizes),
-    which phase 7 aggregates."""
+    which phase 7 aggregates, with the base on the card, on which phase 8
+    runs its rounds."""
     from repro_torch.configs import get_config
     from repro_torch.core.lora import make_rank_mask
     from repro_torch.data import dirichlet_partition, make_pair_classification
@@ -1650,7 +1683,8 @@ def run_training(torch, np) -> tuple:
     log("  lora device ms a step: " + ", ".join(
         f"{g} {v:.3f}" for g, v in per_step.items()))
     return launches, {"cfg": cfg, "factors": trained["factors"],
-                      "masks": cmasks, "shards": [len(x) for x in shards]}
+                      "masks": cmasks, "shards": [len(x) for x in shards],
+                      "base": gpu}
 
 
 def _paths(tree, prefix=()):
@@ -2013,6 +2047,350 @@ def run_aggregation(torch, np, trained) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the synchronous round on full-width RoBERTa-large
+# ---------------------------------------------------------------------------
+
+# run_experiment on phase 6's base: 16 clients, 4 a round, ranks in [2, 8]
+# (the paper's setting), then three shorter runs of the other strategies
+# and of the spectrum policy, whose randomized SVD launches recon_agg.
+ROUND_SERVER = dict(num_clients=16, clients_per_round=4, r_min=2, r_max=8,
+                    seed=0)
+ROUND_RUNS = (
+    ("hlora factored, random ranks", 3,
+     dict(strategy="hlora", svd_method="factored", rank_policy="random")),
+    ("naive", 2, dict(strategy="naive")),
+    ("flora", 2, dict(strategy="flora")),
+    ("hlora randomized, spectrum ranks per target", 2,
+     dict(strategy="hlora", svd_method="randomized", rank_policy="spectrum",
+          per_target_ranks=True)),
+)
+ROUND_PARTS = ("broadcast", "train", "collect", "aggregate", "eval")
+# svd_randomized is exact (to float precision) when rank(dW') <= r_max +
+# its oversample of 8; a cohort whose ranks sum past 16 is outside that
+# contract, and (c) is held there all the same, saying so
+ROUND_OVERSAMPLE = 8
+
+
+def _bits(torch, t):
+    """A tensor's bit patterns on the host, as integers of its width."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().cpu().contiguous().view(ints[t.element_size()])
+
+
+def hold_message(torch, msg, full, ranks, specs, head_bytes, r_max, L):
+    """(a) the measured size is 4 + header + payload, and the payload is
+    sum_t L (d_in + d_out) r_t 4 bytes plus the head's; (b) decoding the
+    bytes gives the packed tensors bit for bit, and unpacking gives the
+    full-rank slice that was truncated (value equality: the padding is
+    +0.0 where A m may hold -0.0) with the rank masks."""
+    from repro_torch.fed.messages import _flatten_payload, payload_bytes
+    raw = msg.to_bytes()
+    hlen = int.from_bytes(raw[:4], "little")
+    want = sum(L * (d_in + d_out) * ranks[t] * 4
+               for t, (d_in, d_out) in specs.items()) + head_bytes
+    if not (msg.num_bytes == len(raw) == 4 + hlen + payload_bytes(msg)
+            and payload_bytes(msg) == want):
+        raise AssertionError(f"(a) {type(msg).__name__} to client "
+                             f"{msg.client_id}: {msg.num_bytes} bytes, "
+                             f"header {hlen}, payload {payload_bytes(msg)} "
+                             f"(expected {want})")
+    back = type(msg).from_bytes(raw)
+    sent = _flatten_payload(msg.adapter, msg.head)
+    got = _flatten_payload(back.adapter, back.head)
+    if sorted(got) != sorted(sent) or not all(
+            torch.equal(_bits(torch, got[p]), _bits(torch, sent[p]))
+            for p in sent):
+        raise AssertionError(f"(b) {type(msg).__name__} to client "
+                             f"{msg.client_id} does not decode bit for bit")
+    tree, _ = back.unpack(r_max, "cuda")
+    for t, ad in tree.items():
+        mask = (torch.arange(r_max, device="cuda") < ranks[t]).float()
+        if not (torch.equal(ad["A"], full[t]["A"])
+                and torch.equal(ad["B"], full[t]["B"])
+                and torch.equal(ad["mask"], mask.expand_as(ad["mask"]))):
+            raise AssertionError(f"(b) {type(msg).__name__} to client "
+                                 f"{msg.client_id}: unpacked {t} differs "
+                                 f"from the slice sent")
+    return len(raw)
+
+
+def float64_truncations(torch, a, b, ranks):
+    """Float64 SVD of the item stack p q (p (N, d_in, R), q (N, R, d_out),
+    Householder QR of each factor, as phase 7's float64 truth): the dense
+    product, the singular values padded with zeros past R, and each
+    client's rank-r_k truncation (N, K, d_in, d_out)."""
+    from repro_torch.core.svd import svd_factored
+    u, s, vt = svd_factored(a, b, a.shape[-1])
+    sig = torch.nn.functional.pad(s, (0, max(0, max(ranks) + 1 - s.shape[-1])))
+    trunc = torch.stack([(u[..., :r] * s[..., None, :r]) @ vt[..., :r, :]
+                         for r in ranks], 1)
+    return a @ b, sig, trunc
+
+
+def hold_scale_correction(torch, session, cohort, collected, label):
+    """(c), after an hlora round: each cohort client's effective update
+    s_k (A_k m_k)(B_k m_k), from its unpacked broadcast of the new global,
+    (c1) against the rank-r_k truncation of the global adapter's own
+    update (the scale correction alone), and (c2) against the rank-r_k
+    truncation of dW' built in float64 from the collected factors, by
+    phase 7's limits and gap rule (Eckart-Young for every item and client,
+    updates where the truncation is well separated)."""
+    from repro_torch.core.lora import delta_w
+    from repro_torch.fed.messages import Broadcast
+    from repro_torch.fed.session import FedSession
+    cfg = session.cfg
+    alpha, r_max = cfg.lora.alpha, cfg.lora.r_max
+    stacked = session.redistribute(cohort)
+    eff = {t: [] for t in stacked}
+    for i, cid in enumerate(cohort):
+        sl = {t: {"A": ad["A"][i], "B": ad["B"][i]}
+              for t, ad in stacked.items()}
+        msg = FedSession.make_broadcast(session, cid, sl)
+        tree, _ = Broadcast.from_bytes(msg.to_bytes()).unpack(r_max, "cuda")
+        for t, ad in tree.items():
+            eff[t].append(delta_w({k: v.double() for k, v in ad.items()},
+                                  alpha))
+    eta = session.cohort_weights(cohort).double()
+    etan = eta / eta.sum()
+    method = session.strategy.method
+    for t in sorted(collected):
+        ranks = [session._client_ranks(int(c))[t] for c in cohort]
+        upd = torch.stack(eff.pop(t), 1)                    # (L, K, d, d)
+        g = session.global_lora[t]
+        _, sig_g, trunc_g = float64_truncations(
+            torch, g["A"].double() * (alpha / r_max), g["B"].double(), ranks)
+        dw_g = (alpha / r_max) * (g["A"].double() @ g["B"].double())
+        hold_eckart_young(torch, f"{label} (c1) {t}, global", dw_g, sig_g,
+                          upd, ranks)
+        hold_updates(torch, f"{label} (c1) {t}, global", upd, trunc_g,
+                     sig_g, ranks)
+        del dw_g, trunc_g
+        ad = collected[t]
+        m = ad["mask"].double()                             # (K, L, r)
+        coef = etan[:, None] * alpha / torch.clamp(m.sum(-1), min=1.0)
+        k, n_l, d_in, r = ad["A"].shape
+        a = (ad["A"].double() * (m * coef[..., None])[..., None, :]).permute(
+            1, 2, 0, 3).reshape(n_l, d_in, k * r)
+        b = (ad["B"].double() * m[..., :, None]).permute(1, 0, 2, 3).reshape(
+            n_l, k * r, -1)
+        where, total = f"{label} (c2) {t}, dW'", int(m[:, 0].sum())
+        if method == "randomized" and total > r_max + ROUND_OVERSAMPLE:
+            where += (f" (ranks summing to {total} > r_max + oversample: "
+                      f"outside svd_randomized's contract)")
+        dw, sig, trunc = float64_truncations(torch, a, b, ranks)
+        hold_eckart_young(torch, where, dw, sig, upd, ranks)
+        hold_updates(torch, where, upd, trunc, sig, ranks)
+        del upd, dw, trunc
+
+
+def hold_rank_adaptation(np, session, label):
+    """(f): ``session.ranks`` and ``target_ranks`` against the energy rule
+    recomputed here from ``last_spectrum``: per target the mean spectrum
+    over layers, the smallest rank whose leading sigma^2 reach
+    ``spectrum_energy`` of the total, clamped to [r_min, r_max]; every
+    client gets the rank of the targets' mean sigma^2."""
+    scfg = session.scfg
+
+    def energy_rank(s2):
+        cum = np.cumsum(s2) / max(float(s2.sum()), 1e-30)
+        return int(np.clip(np.searchsorted(cum, scfg.spectrum_energy) + 1,
+                           scfg.r_min, scfg.r_max))
+
+    spectra = {t: s.double().cpu().numpy().reshape(-1, s.shape[-1]).mean(0)
+               for t, s in session.last_spectrum.items()}
+    pooled = energy_rank(np.mean([s ** 2 for s in spectra.values()], 0))
+    per_target = {t: energy_rank(s ** 2) for t, s in spectra.items()}
+    ok = (bool((session.ranks == pooled).all())
+          and session.target_ranks == per_target)
+    log(f"  {label} (f) ranks after adaptation: every client "
+        f"{sorted(set(session.ranks.tolist()))}, per target "
+        f"{session.target_ranks}; recomputed from last_spectrum: {pooled}, "
+        f"{per_target} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: rank adaptation disagrees")
+
+
+def round_scheduler(torch, np, label, expect, profile):
+    """A ``SyncRound`` that runs each round with the checks of phase 8 on
+    its way: every part (broadcast, train, collect, aggregate, eval)
+    timed between device synchronizations, every message held by (a) and
+    (b), the launch counts reset when the round starts and read when it
+    ends (d), (c) and (f) after each merge (their time left out of the
+    round's), and, with ``profile``, one more round under torch.profiler.
+    ``expect(session)`` gives the launches a round must make."""
+    from repro_torch.fed import SyncRound
+    from repro_torch.fed.session import FedSession
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lora_specs
+
+    class ChipRound(SyncRound):
+        def run(self, session, train, data_fn, num_rounds, eval_fn=None,
+                eval_every=1):
+            cfg = session.cfg
+            specs, r_max, L = lora_specs(cfg), cfg.lora.r_max, cfg.num_layers
+            head_bytes = sum(v.numel() * v.element_size()
+                             for v in session.global_head.values())
+            self.rounds, self.launches = [], {}
+            cur = {}
+
+            def timed(part, fn):
+                def call(*args, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    cur[part] = time.perf_counter() - t0
+                    return out
+                return call
+
+            def sample():
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                cur.clear()
+                cur.update(start=time.perf_counter(), msgs=[], checks=0.0)
+                cohort = FedSession.sample_cohort(session)
+                cur["cohort"] = [int(c) for c in cohort]
+                cur["ranks"] = [session._client_ranks(c) for c in cohort]
+                return cohort
+
+            def make_broadcast(cid, sl):
+                msg = FedSession.make_broadcast(session, cid, sl)
+                cur["msgs"].append(("down", sl, msg))
+                return msg
+
+            def make_update(cid, sl, start_version, head=None, log=True):
+                msg = FedSession.make_update(session, cid, sl, start_version,
+                                             head, log)
+                cur["msgs"].append(("up", sl, msg))
+                return msg
+
+            aggregate = timed("aggregate",
+                              lambda *a, **kw: FedSession.aggregate_round(
+                                  session, *a, **kw))
+
+            def aggregate_checked(tree, cohort, **kw):
+                aggregate(tree, cohort, **kw)
+                t0 = time.perf_counter()
+                rnd = f"{label} round {session.rounds_done - 1}"
+                nbytes = {"down": 0, "up": 0}
+                for (way, full, msg), ranks in zip(
+                        cur["msgs"], cur["ranks"] * 2):
+                    nbytes[way] += hold_message(torch, msg, full, ranks,
+                                                specs, head_bytes, r_max, L)
+                cur["bytes"] = nbytes
+                if session.strategy.scale_correction:
+                    hold_scale_correction(torch, session, cohort, tree, rnd)
+                if session.scfg.rank_policy == "spectrum":
+                    hold_rank_adaptation(np, session, rnd)
+                torch.cuda.synchronize()
+                cur["checks"] = time.perf_counter() - t0
+
+            def evaluate(lora, head):
+                m = timed("eval", eval_fn)(lora, head)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - cur["start"] - cur["checks"]
+                got = dict(ops.LAUNCHES)
+                want = dict({k: 0 for k in got}, **expect(session))
+                rnd = session.rounds_done - 1
+                shown = {k: v for k, v in got.items() if v or want[k]}
+                log(f"  {label} round {rnd}: cohort {cur['cohort']}, ranks "
+                    f"{cur['ranks']}; wall {wall:.3f} s ("
+                    + ", ".join(f"{p} {cur[p]:.3f}" for p in ROUND_PARTS)
+                    + f"); (a) (b) {len(cur['msgs'])} messages held; (d) "
+                    f"launches {shown}, every other kernel 0 (expect "
+                    f"{ {k: want[k] for k in shown} }) "
+                    f"{'ok' if got == want else 'FAIL'}")
+                if got != want:
+                    raise AssertionError(f"{label} round {rnd}: launches "
+                                         f"{got} != {want}")
+                for k, v in got.items():
+                    self.launches[k] = self.launches.get(k, 0) + v
+                self.rounds.append(dict(cur, wall=wall))
+                return m
+
+            session.sample_cohort = sample
+            session.make_broadcast = make_broadcast
+            session.make_update = make_update
+            session.broadcast_cohort = timed(
+                "broadcast", lambda c: FedSession.broadcast_cohort(session, c))
+            session.collect_updates = timed(
+                "collect", lambda *a: FedSession.collect_updates(session, *a))
+            session.aggregate_round = aggregate_checked
+            hist = super().run(session, timed("train", train), data_fn,
+                               num_rounds, evaluate, eval_every)
+            for i, r in enumerate(self.rounds):
+                if (hist["downlink_bytes"][i], hist["uplink_bytes"][i]) != (
+                        r["bytes"]["down"], r["bytes"]["up"]):
+                    raise AssertionError(f"(a) {label} round {i}: history "
+                                         f"bytes differ from the messages'")
+            for name in ("sample_cohort", "make_broadcast", "make_update",
+                         "broadcast_cohort", "collect_updates",
+                         "aggregate_round"):
+                delattr(session, name)
+            if profile:
+                profile_window(torch, f"{label}: one more round (round "
+                               f"{num_rounds})", lambda: SyncRound.run(
+                                   self, session, train, data_fn, 1, eval_fn,
+                                   eval_every), group=train_group)
+            return hist
+
+    return ChipRound()
+
+
+def run_rounds(torch, np, base) -> dict:
+    """Phase 8: ``run_experiment`` on phase 6's full-width base, each run
+    driven by ``round_scheduler``. Returns the lora and recon_agg launches
+    over every checked round."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import ServerConfig, SimConfig, run_experiment
+
+    cfg = get_config("roberta-large")
+    sim_steps = SimConfig().local_steps
+    per_step = 2 * cfg.num_layers        # q and v in every layer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, walls, parts = {}, [], {p: [] for p in ROUND_PARTS}
+    for i, (label, rounds, kw) in enumerate(ROUND_RUNS):
+        scfg = ServerConfig(**ROUND_SERVER, **kw)
+        recon = 1 if scfg.svd_method in ("exact", "randomized") and \
+            scfg.strategy == "hlora" else 0
+
+        def expect(session, recon=recon):
+            steps = scfg.clients_per_round * sim_steps
+            return {"lora_matmul": per_step * (steps + 1),   # + eval's
+                    "lora_matmul_dx": per_step * steps,
+                    "lora_matmul_grad_ab": per_step * steps,
+                    "recon_agg": recon}
+
+        sched = round_scheduler(torch, np, label, expect, profile=i == 0)
+        t0 = time.perf_counter()
+        hist = run_experiment(cfg, SimConfig(rounds=rounds), scfg,
+                              base_params=base, scheduler=sched)
+        values = hist["train_loss"] + hist["eval_acc"] + hist["eval_loss"]
+        ok = len(hist["round"]) == rounds and all(
+            math.isfinite(v) for v in values)
+        log(f"  {label}: {rounds} rounds in {time.perf_counter() - t0:.1f} "
+            f"s; train loss {[round(v, 5) for v in hist['train_loss']]}, "
+            f"eval acc {[round(v, 4) for v in hist['eval_acc']]}, eval loss "
+            f"{[round(v, 5) for v in hist['eval_loss']]}, downlink bytes "
+            f"{hist['downlink_bytes']}, uplink bytes {hist['uplink_bytes']}; "
+            f"(e) finite {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: history {hist}")
+        for k, v in sched.launches.items():
+            totals[k] = totals.get(k, 0) + v
+        walls += [r["wall"] for r in sched.rounds]
+        for p in ROUND_PARTS:
+            parts[p] += [r[p] for r in sched.rounds]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  round wall time p50 {np.median(walls):.3f} s over {len(walls)} "
+        f"rounds (min {min(walls):.3f}, max {max(walls):.3f}); parts p50: "
+        + ", ".join(f"{p} {np.median(v):.3f} s" for p, v in parts.items())
+        + f"; peak memory {peak:.2f} GiB; {device_line()}")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2069,6 +2447,19 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["recon_agg"] = run_aggregation(torch, np, trained)
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    base = trained.pop("base")
+    del trained                       # phase 7's cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[8] the synchronous round: run_experiment on phase 6's base")
+    t0 = time.perf_counter()
+    round_launches = run_rounds(torch, np, base)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    # the lora kernels and recon_agg run on two counted paths each: phase
+    # 6's cohort call or phase 7's engine calls, and phase 8's rounds
+    for name in ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab",
+                 "recon_agg"):
+        launches[name] += round_launches[name]
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

@@ -1,0 +1,462 @@
+"""FedSession, the server side of a synchronous federated run (port of the
+synchronous part of ``repro/fed/session.py``).
+
+* **State**: frozen base, global adapter at r_max, task head, per-client
+  ranks, per-target rank caps, the numpy rng, the round counter, the comm
+  log; every tensor on the session's ``device``.
+* **Strategy** (``fed/strategies.py``): the engine configuration that
+  aggregates a cohort and the redistribution scale policy.
+* **Redistribution**: ``redistribute`` masks the global adapter to each
+  client's rank (clamped by per-target caps from spectrum adaptation) and
+  applies the strategy's scale correction.
+* **Wire accounting** (``fed/messages.py``): ``broadcast_cohort`` and
+  ``collect_updates`` round-trip the payloads through serialized
+  ``Broadcast`` / ``ClientUpdate`` messages and log the measured bytes;
+  the round trip is exact, so the measured path is the compute path.
+
+The session draws from one ``np.random.default_rng(scfg.seed)`` exactly as
+the reference does: the cohort, the capacities of the ``capacity`` policy
+and one ``integers(2**31)`` per aggregation, which seeds the engine's
+``torch.Generator`` (the reference makes a ``jax.random`` key of it). So
+the same configuration gives the reference's cohorts in every round. The
+initial global adapter comes from a ``torch.Generator`` seeded with
+``scfg.seed`` (the reference's from ``jax.random``): the same
+distributions, not the same numbers.
+
+Not ported yet: checkpoint/resume (``save``/``restore``), the async merge
+(``flush_async``, ``adapter_for``, ``AsyncConfig``), populations and
+samplers, wire codecs, the mesh and the recorder; passing any of them
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import agg_engine
+from repro_torch.core import rank as rank_lib
+from repro_torch.device import resolve_device
+from repro_torch.fed import messages as msg_lib
+from repro_torch.fed import strategies as strat_lib
+from repro_torch.fed.client import split_head
+from repro_torch.models import transformer as tf_lib
+from repro_torch.obs.metrics import MetricsRegistry
+
+
+@dataclass
+class ServerConfig:
+    num_clients: int = 100
+    clients_per_round: int = 20
+    strategy: str = "hlora"          # naive | hlora | flora
+    svd_method: str = "factored"     # factored | exact | randomized
+    split: str = "paper"             # paper | sqrt
+    # uniform | random | capacity | data | spectrum. 'spectrum' reads the
+    # singular spectrum of ΔW' after each aggregation and assigns the
+    # smallest rank capturing ``spectrum_energy`` of it.
+    rank_policy: str = "random"
+    spectrum_energy: float = 0.95
+    # each LoRA target gets its own energy rank from its own spectrum;
+    # redistribution masks target t to min(r_client, r_target)
+    per_target_ranks: bool = False
+    r_min: int = 2
+    r_max: int = 8
+    seed: int = 0
+    # wire codec; only "none" (the raw format) is ported
+    codec: str = "none"
+
+
+def assign_ranks(scfg: ServerConfig, client_sizes, capacities=None,
+                 rng=None) -> np.ndarray:
+    n = scfg.num_clients
+    if scfg.rank_policy == "uniform":
+        return rank_lib.uniform_ranks(n, scfg.r_max)
+    if scfg.rank_policy == "random":
+        return rank_lib.random_ranks(n, scfg.r_min, scfg.r_max, scfg.seed)
+    if scfg.rank_policy == "capacity":
+        caps = capacities if capacities is not None else \
+            (rng or np.random.default_rng(scfg.seed)).random(n)
+        return rank_lib.capacity_ranks(caps, scfg.r_min, scfg.r_max)
+    if scfg.rank_policy == "data":
+        return rank_lib.data_ranks(client_sizes, scfg.r_min, scfg.r_max)
+    if scfg.rank_policy == "spectrum":
+        # starts at r_max; adapt_ranks() tightens it after each round
+        return rank_lib.uniform_ranks(n, scfg.r_max)
+    raise ValueError(scfg.rank_policy)
+
+
+def _not_ported(**given) -> None:
+    for name, value in given.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"FedSession({name}=...) is not ported yet: the port runs "
+                f"the synchronous round on one device")
+
+
+class FedSession:
+    def __init__(self, cfg: ModelConfig, scfg: ServerConfig, base_params,
+                 client_sizes: Optional[Sequence[int]] = None,
+                 capacities: Optional[Sequence[float]] = None,
+                 engine: Optional[agg_engine.AggregationEngine] = None,
+                 strategy=None,
+                 acfg=None,
+                 track_comm: bool = True,
+                 mesh=None,
+                 recorder=None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 population=None,
+                 sampler=None,
+                 codec=None,
+                 device=None):
+        """``base_params``: a ``Transformer`` on ``device`` (None = CUDA,
+        which must exist)."""
+        _not_ported(acfg=acfg, mesh=mesh, recorder=recorder,
+                    population=population, sampler=sampler, codec=codec)
+        if scfg.codec != "none":
+            raise NotImplementedError(
+                f"ServerConfig.codec={scfg.codec!r}: wire codecs are not "
+                f"ported yet")
+        self.device = resolve_device(device)
+        if base_params.embed.device != self.device:
+            raise ValueError(f"base params on {base_params.embed.device}, "
+                             f"the session on {self.device}")
+        self.cfg = cfg
+        self.scfg = scfg
+        if strategy is None:
+            strategy = scfg.strategy
+        self.strategy = (strategy if isinstance(
+            strategy, strat_lib.AggregationStrategy)
+            else strat_lib.from_name(strategy, scfg))
+        frozen, head = split_head(base_params)
+        self.base = frozen
+        self.global_head = head   # task head: FedAvg'd in-session
+        self.rng = np.random.default_rng(scfg.seed)
+        self.client_sizes = np.asarray(
+            client_sizes if client_sizes is not None
+            else np.full(scfg.num_clients, 64), np.int64)
+        self.ranks = assign_ranks(scfg, self.client_sizes, capacities,
+                                  self.rng)
+        # global adapter at full rank (A gaussian, B zero => ΔW = 0)
+        gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        self.global_lora = tf_lib.init_lora(gen, cfg, device=self.device)
+        self.engine = engine if engine is not None \
+            else agg_engine.default_engine()
+        # singular spectrum of the last aggregated ΔW' per target,
+        # {target: (*stack, r_max)}, from the engine
+        self.last_spectrum: Optional[dict] = None
+        # per-target rank caps ({target: r}) set by adapt_ranks when
+        # scfg.per_target_ranks; None until the first adaptation
+        self.target_ranks: Optional[Dict[str, int]] = None
+        self.rounds_done = 0
+        self.version = 0
+        self.track_comm = track_comm
+        # measured wire bytes, one entry per broadcast_cohort /
+        # collect_updates call
+        self.comm_log: Dict[str, List[int]] = {"downlink": [], "uplink": []}
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # per-round health rows (``health_snapshot``), observe-only
+        self.health_log: List[Dict[str, float]] = []
+        self.health_z_threshold: float = 3.0
+        self._health_seen: Dict[str, float] = {}
+
+    def _log_comm(self, direction: str, nbytes: int) -> None:
+        """The comm accounting choke point: the per-call ``comm_log`` row
+        and a registry byte counter."""
+        self.comm_log.setdefault(direction, []).append(nbytes)
+        self.metrics.counter(f"fed.{direction}_bytes").inc(int(nbytes))
+
+    # -- cohort handling ----------------------------------------------------
+
+    def sample_cohort(self) -> np.ndarray:
+        """This round's cohort: a uniform draw without replacement from
+        the session rng."""
+        return self.rng.choice(self.scfg.num_clients,
+                               size=self.scfg.clients_per_round,
+                               replace=False)
+
+    def cohort_weights(self, cohort: np.ndarray) -> torch.Tensor:
+        n_k = self.client_sizes[cohort].astype(np.float64)
+        return torch.tensor(n_k / n_k.sum(), dtype=torch.float32,
+                            device=self.device)
+
+    def cohort_heads(self, cohort: np.ndarray) -> Dict[str, torch.Tensor]:
+        k = len(cohort)
+        return {n: x[None].expand(k, *x.shape).clone()
+                for n, x in self.global_head.items()}
+
+    # -- redistribution -----------------------------------------------------
+
+    def _cohort_masks(self, cohort: np.ndarray, mask_shape,
+                      cap: Optional[int] = None) -> torch.Tensor:
+        """Rank masks for the cohort; ``cap`` (per-target rank) clamps
+        every client's rank from above: SVD components are ordered, so the
+        first min(r_k, cap) directions are the optimal truncation."""
+        r_max = self.cfg.lora.r_max
+        masks = np.zeros((len(cohort), *mask_shape), np.float32)
+        for i, cid in enumerate(cohort):
+            r_k = int(self.ranks[cid]) if cap is None \
+                else min(int(self.ranks[cid]), int(cap))
+            masks[i, ...] = (np.arange(r_max) < r_k).astype(np.float32)
+        return torch.from_numpy(masks).to(self.device)
+
+    def redistribute(self, cohort: np.ndarray) -> Dict[str, dict]:
+        """Per-client rank-r_k truncation of the global adapter, clamped
+        per target when per-target ranks are adapted, with the strategy's
+        scale correction (hlora: r_eff/r_max on B, so the client's
+        effective update is exactly the rank-r_k truncation of ΔW';
+        naive and flora send plain truncated factors)."""
+        k = len(cohort)
+        r_max = self.cfg.lora.r_max
+        out = {}
+        for t, ad in self.global_lora.items():
+            cap = None if self.target_ranks is None \
+                else self.target_ranks.get(t)
+            m = self._cohort_masks(cohort, tuple(ad["mask"].shape), cap)
+            a = ad["A"][None].expand(k, *ad["A"].shape) * m[..., None, :]
+            b = ad["B"][None].expand(k, *ad["B"].shape) * m[..., :, None]
+            if self.strategy.scale_correction:
+                r_eff = torch.clamp(m.sum(-1), min=1.0)      # (K, *stack)
+                b = b * (r_eff / float(r_max))[..., None, None]
+            out[t] = {"A": a, "B": b, "mask": m}
+        return out
+
+    def _client_ranks(self, cid: int) -> Dict[str, int]:
+        """Per-target effective rank of one client (cap-clamped)."""
+        r = int(self.ranks[cid])
+        out = {}
+        for t in self.global_lora:
+            cap = None if self.target_ranks is None \
+                else self.target_ranks.get(t)
+            out[t] = r if cap is None else min(r, int(cap))
+        return out
+
+    # -- wire-level broadcast / collect -------------------------------------
+
+    def make_broadcast(self, cid: int, stacked_slice) -> msg_lib.Broadcast:
+        """One client's ``Broadcast`` from its slice of the redistributed
+        stack (already masked and scale-corrected)."""
+        payload = msg_lib.truncate_adapter(stacked_slice,
+                                           self._client_ranks(cid))
+        return msg_lib.Broadcast(version=self.version, client_id=int(cid),
+                                 adapter=payload,
+                                 head=dict(self.global_head))
+
+    @staticmethod
+    def _stack_clients(per_client, heads):
+        """Re-stack per-client unpacked trees and heads along a cohort
+        axis."""
+        out = {t: {leaf: torch.stack([c[t][leaf] for c in per_client])
+                   for leaf in ("A", "B", "mask")}
+               for t in per_client[0]}
+        heads_st = {k: torch.stack([h[k] for h in heads]) for k in heads[0]} \
+            if heads and heads[0] else {}
+        return out, heads_st
+
+    def broadcast_cohort(self, cohort: np.ndarray):
+        """Redistribute to a cohort through the wire format: returns
+        ``(stacked_tree, stacked_heads)`` rebuilt from the serialized
+        ``Broadcast`` messages, and logs the measured downlink bytes."""
+        stacked = self.redistribute(cohort)
+        if not self.track_comm:
+            self._log_comm("downlink", 0)
+            return stacked, self.cohort_heads(cohort)
+        r_max = self.cfg.lora.r_max
+        per_client, heads, total = [], [], 0
+        for i, cid in enumerate(cohort):
+            sl = {t: {"A": ad["A"][i], "B": ad["B"][i]}
+                  for t, ad in stacked.items()}
+            wire = msg_lib.Broadcast.from_bytes(
+                self.make_broadcast(cid, sl).to_bytes())
+            total += wire.num_bytes
+            tree, head = wire.unpack(r_max, self.device)
+            per_client.append(tree)
+            heads.append(head)
+        self._log_comm("downlink", total)
+        return self._stack_clients(per_client, heads)
+
+    def make_update(self, cid: int, trained_lora: Dict, start_version: int,
+                    head=None, log: bool = True) -> msg_lib.ClientUpdate:
+        """One client's trained adapter (and head) as a ``ClientUpdate``,
+        logging the measured uplink bytes (``log=False`` when the caller
+        accounts for them itself)."""
+        ranks = {}
+        for t, ad in trained_lora.items():
+            m = ad["mask"].reshape(-1, ad["mask"].shape[-1])
+            ranks[t] = int(m[0].sum())
+        upd = msg_lib.ClientUpdate(
+            client_id=int(cid), start_version=int(start_version),
+            num_examples=int(self.client_sizes[int(cid)]),
+            adapter=msg_lib.truncate_adapter(trained_lora, ranks),
+            head=dict(head or {}))
+        if log:
+            self._log_comm("uplink", upd.num_bytes
+                           if self.track_comm else 0)
+        return upd
+
+    def collect_updates(self, cohort: np.ndarray, trained_tree: Dict,
+                        trained_heads=None):
+        """Round-trip a trained cohort stack through ``ClientUpdate``
+        messages (one uplink comm_log row a round) and return the
+        re-stacked tree and heads for :meth:`aggregate_round`."""
+        if not self.track_comm:
+            self._log_comm("uplink", 0)
+            return trained_tree, trained_heads
+        r_max = self.cfg.lora.r_max
+        per_client, heads, total = [], [], 0
+        for i, cid in enumerate(cohort):
+            sl = {t: {leaf: ad[leaf][i] for leaf in ("A", "B", "mask")}
+                  for t, ad in trained_tree.items()}
+            h = None if trained_heads is None else \
+                {k: v[i] for k, v in trained_heads.items()}
+            upd = msg_lib.ClientUpdate.from_bytes(
+                self.make_update(cid, sl, self.version, h,
+                                 log=False).to_bytes())
+            total += upd.num_bytes
+            tree, head = upd.unpack(r_max, self.device)
+            per_client.append(tree)
+            heads.append(head)
+        self._log_comm("uplink", total)
+        out, heads_st = self._stack_clients(per_client, heads)
+        return out, (heads_st or None) if trained_heads is not None \
+            else None
+
+    # -- aggregation ---------------------------------------------------------
+
+    def aggregate_round(self, stacked_trained, cohort: np.ndarray,
+                        stacked_heads=None, weights=None) -> None:
+        """Synchronous cohort merge: one engine call (Eq. 2 + 3 under
+        hlora and flora, Eq. 1 under naive), output at full rank r_max.
+        Task heads are FedAvg'd with the same cohort weights under every
+        strategy. ``weights`` overrides the per-client data weights."""
+        eta = self.cohort_weights(cohort) if weights is None \
+            else torch.as_tensor(weights, dtype=torch.float32,
+                                 device=self.device)
+        if stacked_heads:
+            self.global_head = {
+                k: torch.tensordot(eta, x.float(), dims=1).to(x.dtype)
+                for k, x in stacked_heads.items()}
+        full = {t: torch.ones_like(ad["mask"][:1])
+                for t, ad in stacked_trained.items()}
+        # drawn every round under every strategy, as the reference draws
+        # its key, so the session's stream stays aligned with it
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(self.rng.integers(2 ** 31)))
+        out, spectra = self.engine(
+            stacked_trained, eta, self.cfg.lora.alpha,
+            **self.strategy.engine_kwargs(), new_masks=full, gen=gen)
+        self.global_lora = {
+            t: {"A": ad["A"][0], "B": ad["B"][0], "mask": ad["mask"][0]}
+            for t, ad in out.items()}
+        self.last_spectrum = spectra if self.strategy.has_spectrum \
+            else None
+        if self.scfg.rank_policy == "spectrum":
+            self.adapt_ranks()
+        self.rounds_done += 1
+        self.metrics.counter("fed.rounds").inc()
+
+    # -- rank adaptation ----------------------------------------------------
+
+    def _target_spectra(self) -> Dict[str, np.ndarray]:
+        """Per-target mean singular spectrum of the aggregated ΔW', from
+        the engine; without one (naive runs no SVD), from the row norms
+        of the global B factors, normalized per split ('sqrt' puts √σ in
+        each factor)."""
+        if self.last_spectrum is not None:
+            out = {}
+            for t, s in self.last_spectrum.items():
+                s = s.detach().cpu().numpy().astype(np.float64)
+                out[t] = s.reshape(-1, s.shape[-1]).mean(0)
+            return out
+        out = {}
+        for t, ad in self.global_lora.items():
+            b = torch.linalg.vector_norm(ad["B"], dim=-1).cpu().numpy()
+            s = b.reshape(-1, b.shape[-1]).mean(axis=0)
+            if self.strategy.split == "sqrt":
+                s = s ** 2
+            out[t] = s
+        return out
+
+    def adapt_ranks(self) -> None:
+        """Read the singular spectrum of the aggregated ΔW' and pick the
+        smallest rank capturing ``spectrum_energy`` of it, one rank for
+        every client from the spectra pooled across targets; with
+        ``scfg.per_target_ranks`` each target also gets its own cap."""
+        spectra = self._target_spectra()
+        e, lo, hi = (self.scfg.spectrum_energy, self.scfg.r_min,
+                     self.scfg.r_max)
+        r_star = agg_engine.rank_for_energy(
+            np.stack(list(spectra.values())), e, lo, hi)
+        self.ranks = np.full((self.scfg.num_clients,), r_star, np.int32)
+        if self.scfg.per_target_ranks:
+            self.target_ranks = {
+                t: agg_engine.rank_for_energy(s, e, lo, hi)
+                for t, s in spectra.items()}
+
+    # -- accessors -----------------------------------------------------------
+
+    def global_params(self) -> tf_lib.Transformer:
+        """The frozen base with the global head and adapter in place."""
+        params = copy.copy(self.base)
+        params.cls = dict(self.global_head)
+        params.lora = self.global_lora
+        return params
+
+    def comm_totals(self) -> Dict[str, int]:
+        return {k: int(sum(v)) for k, v in self.comm_log.items()}
+
+    # -- health snapshots ----------------------------------------------------
+
+    #: snapshot keys scanned for z-score anomalies against the history
+    _HEALTH_ANOMALY_KEYS = ("downlink_bytes", "uplink_bytes",
+                            "stragglers", "staleness_p99")
+
+    def health_snapshot(self) -> Dict[str, float]:
+        """One per-round health row: wire bytes, stragglers, merged and
+        dropped updates and staleness percentiles since the previous
+        snapshot, appended to ``health_log``. With >= 3 earlier rows,
+        each of ``_HEALTH_ANOMALY_KEYS`` is z-scored against them; a |z|
+        above ``health_z_threshold`` counts in ``fed.health.anomalies``.
+        Observe-only, from already-counted state."""
+        seen = self._health_seen
+
+        def delta(key: str, cur: float) -> float:
+            d = cur - seen.get(key, 0.0)
+            seen[key] = cur
+            return float(d)
+
+        snap: Dict[str, float] = {
+            "round": float(self.rounds_done),
+            "version": float(self.version),
+            "downlink_bytes": delta("downlink",
+                                    sum(self.comm_log["downlink"])),
+            "uplink_bytes": delta("uplink", sum(self.comm_log["uplink"])),
+            "stragglers": delta(
+                "stragglers",
+                self.metrics.counter("fed.stragglers").value),
+            "updates_merged": delta(
+                "merged", self.metrics.counter("fed.updates_merged").value),
+            "updates_dropped": delta(
+                "dropped",
+                self.metrics.counter("fed.updates_dropped").value),
+        }
+        # no async merges here: the staleness log stays empty
+        snap["staleness_p50"] = snap["staleness_p99"] = 0.0
+        anomalies = []
+        if len(self.health_log) >= 3:
+            for k in self._HEALTH_ANOMALY_KEYS:
+                hist = np.asarray([h[k] for h in self.health_log],
+                                  np.float64)
+                sd = float(hist.std())
+                if sd <= 1e-12:
+                    continue
+                z = (snap[k] - float(hist.mean())) / sd
+                if abs(z) > self.health_z_threshold:
+                    anomalies.append(k)
+                    self.metrics.counter("fed.health.anomalies").inc()
+        snap["anomalies"] = float(len(anomalies))
+        self.health_log.append(snap)
+        return snap

@@ -1,16 +1,40 @@
-"""Federated fine-tuning simulation settings and per-round client data
-(port of the data side of ``repro/fed/simulation.py``: ``SimConfig`` and
-``_stack_client_data``; the rounds themselves come with server
-aggregation)."""
+"""End-to-end federated fine-tuning simulation (port of
+``repro/fed/simulation.py`` with the synchronous scheduler).
+
+A frozen backbone, K clients with Dirichlet non-IID shards of a
+classification task, LoRA local training (adapters and the task head),
+one aggregation strategy per round. ``run_experiment`` stands up the
+data, the cohort trainer and the eval function, then hands control to a
+``SyncRound`` over one :class:`~repro_torch.fed.session.FedSession`. It
+returns the history {round, train_loss, eval_acc, eval_loss,
+downlink_bytes, uplink_bytes, health}.
+
+The caller supplies the backbone (``base_params``, a ``Transformer`` on
+``device``): the reference's ``pretrain_backbone`` trains every weight,
+which needs a backward to W0 that the port's LoRA op does not have yet,
+so ``base_params=None`` raises. ``BufferedAsync`` and ``SemiSync`` are
+not ported.
+"""
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.data import client_batches
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.seeds import derive_seed
+from repro_torch.data import (client_batches, dirichlet_partition,
+                              make_pair_classification)
+from repro_torch.device import resolve_device
+from repro_torch.fed.client import (evaluate, join_adapters,
+                                    make_cohort_train, make_local_train,
+                                    split_adapters, split_head)
+from repro_torch.fed.schedulers import Scheduler, SyncRound
+from repro_torch.fed.session import FedSession, ServerConfig
+from repro_torch.optim import adamw
 
 
 @dataclass
@@ -40,3 +64,143 @@ def stack_client_data(tokens: np.ndarray, labels: np.ndarray,
            for cid in cohort]
     return {"tokens": torch.from_numpy(np.stack([p["tokens"] for p in per])),
             "labels": torch.from_numpy(np.stack([p["labels"] for p in per]))}
+
+
+def _need_base(base_params) -> None:
+    if base_params is None:
+        raise NotImplementedError(
+            "base_params=None would pretrain the backbone "
+            "(pretrain_backbone), which is not ported yet (ROADMAP.md "
+            "queue 1 item 4: it needs a backward to W0); pass base_params")
+
+
+def _eval_batch(cfg: ModelConfig, sim: SimConfig, dev: torch.device):
+    ev_tokens, ev_labels = make_pair_classification(
+        sim.task, sim.eval_examples, seed=sim.seed + 10_000,
+        vocab_size=cfg.vocab_size)
+    return {"tokens": torch.from_numpy(ev_tokens).to(dev),
+            "labels": torch.from_numpy(ev_labels).to(dev)}
+
+
+def make_experiment_setup(cfg: ModelConfig, sim: SimConfig,
+                          scfg: ServerConfig, base_params=None, device=None):
+    """Data, trainers and eval shared by the schedulers, on ``device``
+    (None = CUDA). Returns ``(session_kwargs, cohort_train, local_train,
+    data_fn, client_data_fn, eval_fn)``."""
+    _need_base(base_params)
+    dev = resolve_device(device)
+    frozen, _ = split_head(base_params)
+
+    tokens, labels = make_pair_classification(
+        sim.task, sim.num_examples, seed=sim.seed, vocab_size=cfg.vocab_size)
+    ev_batch = _eval_batch(cfg, sim, dev)
+
+    shards = dirichlet_partition(labels, scfg.num_clients,
+                                 sim.dirichlet_alpha, seed=sim.seed)
+    opt = adamw(sim.lr)
+    cohort_train = make_cohort_train(cfg, opt, device=dev)
+    local_train = make_local_train(cfg, opt, device=dev)
+
+    def eval_fn(lora_tree, head):
+        params = copy.copy(frozen)
+        params.cls, params.lora = dict(head), lora_tree
+        return evaluate(params, ev_batch, cfg, device=dev)
+
+    def data_fn(cohort, rnd):
+        return stack_client_data(tokens, labels, shards, cohort, sim, rnd)
+
+    rng = np.random.default_rng(
+        derive_seed(sim.seed, "async-client-batches"))
+
+    def client_data_fn(cid):          # async mode: one client's batches
+        picks = rng.integers(0, len(shards[cid]),
+                             size=(sim.local_steps, sim.local_batch))
+        idx = shards[cid][picks]
+        return {"tokens": torch.from_numpy(tokens[idx]),
+                "labels": torch.from_numpy(labels[idx])}
+
+    session_kwargs = dict(base_params=base_params,
+                          client_sizes=[len(s) for s in shards])
+    return (session_kwargs, cohort_train, local_train, data_fn,
+            client_data_fn, eval_fn)
+
+
+def run_experiment(
+    cfg: ModelConfig,
+    sim: SimConfig,
+    scfg: ServerConfig,
+    base_params=None,
+    eval_every: int = 1,
+    engine=None,
+    strategy=None,
+    scheduler: Optional[Scheduler] = None,
+    track_comm: bool = True,
+    device=None,
+) -> Dict[str, List[float]]:
+    """One federated experiment = one FedSession + one ``SyncRound`` on
+    ``device`` (None = CUDA). ``strategy`` (an AggregationStrategy or
+    name) defaults to ``scfg.strategy``; ``track_comm=False`` skips the
+    wire round trip (the history's byte columns become 0)."""
+    sched = scheduler if scheduler is not None else SyncRound()
+    if not isinstance(sched, SyncRound):
+        raise NotImplementedError(
+            f"scheduler {type(sched).__name__}: only SyncRound is ported "
+            f"(SemiSync and BufferedAsync are not yet)")
+    (session_kwargs, cohort_train, _local_train, data_fn, _client_data_fn,
+     eval_fn) = make_experiment_setup(cfg, sim, scfg, base_params, device)
+    session = FedSession(cfg, scfg, engine=engine, strategy=strategy,
+                         track_comm=track_comm, device=device,
+                         **session_kwargs)
+    return sched.run(session, cohort_train, data_fn, sim.rounds,
+                     eval_fn=eval_fn, eval_every=eval_every)
+
+
+def run_centralized(
+    cfg: ModelConfig, sim: SimConfig, rank: int = 8,
+    steps: Optional[int] = None, base_params=None, device=None,
+) -> Dict[str, List[float]]:
+    """Centralized LoRA fine-tuning, Table 1's upper-bound row, on
+    ``device`` (None = CUDA)."""
+    _need_base(base_params)
+    dev = resolve_device(device)
+    frozen, head = split_head(base_params)
+    r_max = cfg.lora.r_max
+    lora0 = {t: dict(ad) for t, ad in base_params.lora.items()}
+    for t in lora0:
+        lora0[t]["mask"] = (torch.arange(r_max, device=dev) < rank).to(
+            torch.float32).expand(lora0[t]["mask"].shape).clone()
+    tokens, labels = make_pair_classification(
+        sim.task, sim.num_examples, seed=sim.seed, vocab_size=cfg.vocab_size)
+    ev_batch = _eval_batch(cfg, sim, dev)
+    steps = steps if steps is not None else sim.rounds * sim.local_steps
+    local = make_local_train(cfg, adamw(sim.lr), device=dev)
+    factors, masks = split_adapters(lora0)
+    trainable = {"factors": factors, "head": head}
+    rng = np.random.default_rng(sim.seed)
+    history = {"round": [], "train_loss": [], "eval_acc": [], "eval_loss": []}
+
+    def eval_fn(trainable):
+        params = copy.copy(frozen)
+        params.cls = dict(trainable["head"])
+        params.lora = join_adapters(trainable["factors"], masks)
+        return evaluate(params, ev_batch, cfg, device=dev)
+
+    chunk = sim.local_steps
+    for rnd in range(max(1, steps // chunk)):
+        picks = rng.integers(0, len(tokens), size=(chunk, sim.local_batch))
+        data = {"tokens": torch.from_numpy(tokens[picks]),
+                "labels": torch.from_numpy(labels[picks])}
+        trainable, loss = local(frozen, trainable, masks, data)
+        m = eval_fn(trainable)
+        history["round"].append(rnd)
+        history["train_loss"].append(float(loss))
+        history["eval_acc"].append(float(m["acc"]))
+        history["eval_loss"].append(float(m["loss"]))
+    return history
+
+
+def rounds_to_target(history: Dict[str, List[float]], target: float):
+    for rnd, acc in zip(history["round"], history["eval_acc"]):
+        if acc >= target:
+            return rnd
+    return None

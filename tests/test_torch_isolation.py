@@ -72,7 +72,9 @@ def test_port_modules_mirror_the_reference_layout():
                 "data/partition.py", "optim/optimizers.py",
                 "optim/schedules.py", "fed/client.py", "fed/simulation.py",
                 "kernels/recon_agg.py", "core/svd.py", "core/aggregate.py",
-                "core/agg_engine.py"):
+                "core/agg_engine.py", "core/seeds.py", "core/rank.py",
+                "fed/strategies.py", "fed/messages.py", "fed/session.py",
+                "fed/schedulers.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 
@@ -117,6 +119,29 @@ def test_training_entry_points_refuse_a_missing_gpu_without_device_cpu():
         evaluate(params, batch, cfg)
     assert set(evaluate(params, batch, cfg, device="cpu")) == {"loss", "acc"}
     make_local_train(cfg, adamw(1e-3), device="cpu")    # asked for: fine
+
+
+def test_round_entry_points_refuse_a_missing_gpu_without_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately means it")
+    from repro_torch.configs import get_reduced
+    from repro_torch.fed import (FedSession, ServerConfig, SimConfig,
+                                 run_centralized, run_experiment)
+    from repro_torch.models import model
+    cfg = get_reduced("roberta-large")
+    params = model.init_params(cfg, device="cpu")
+    scfg = ServerConfig(num_clients=4, clients_per_round=2)
+    sim = SimConfig(num_examples=64, eval_examples=8, rounds=1,
+                    local_steps=1, local_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedSession(cfg, scfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_experiment(cfg, sim, scfg, base_params=params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_centralized(cfg, sim, base_params=params)
+    FedSession(cfg, scfg, params, device="cpu")          # asked for: fine
+    hist = run_experiment(cfg, sim, scfg, base_params=params, device="cpu")
+    assert hist["round"] == [0] and hist["uplink_bytes"][0] > 0
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
