@@ -82,7 +82,18 @@ Phases, each of which raises on failure:
    metrics; (f) the adapted ranks against the energy rule recomputed from
    the spectrum; each round's time split into broadcast, train, collect,
    aggregate and eval, one profiled round, peak memory;
-9. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+9. backbone pretraining on full-width RoBERTa-large (every parameter, the
+   LoRA masks included): (a) one step of 8 rows on the card against the
+   CPU: loss, every leaf's gradient, every leaf's change after one AdamW
+   step (phase 6's limits; the key bias, whose gradient is rounding noise,
+   held to noise size on both sides); (b) ``pretrain_backbone`` at
+   ``SimConfig``'s defaults, 150 steps of 64 x 32 tokens: every loss
+   finite, 48 launches of each lora kernel a step and no other kernel of
+   ours, step time, tokens/s, peak memory, and 3 profiled steps with the
+   optimizer's device time apart; (c) 3 rounds of phase 8's hlora
+   ``factored`` run through ``run_experiment(base_params=None)``, which
+   must take (b)'s cached backbone, with phase 8's checks on every round;
+10. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -694,12 +705,16 @@ def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
     return row
 
 
-# (label, M, K, N, R): the training path's shape, two ragged ones (the
-# second with K and N not multiples of 4: the kernels with element loads)
-# and the merged-weight oracle's M = 1 on Gemma-2B's widths
+# (label, M, K, N, R): the training and pretraining paths' shapes, two
+# ragged ones (the second with K and N not multiples of 4: the kernels
+# with element loads) and the merged-weight oracle's M = 1 on Gemma-2B's
+# widths. The first is the kernels line's; the first two are timed.
+TIMED_M = (512, 2048)
 LORA_SHAPES = [
     ("training: 16 x 32 tokens through a q or v projection of "
      "RoBERTa-large", 512, 1024, 1024, 8),
+    ("pretraining: 64 x 32 tokens through a q or v projection of "
+     "RoBERTa-large", 2048, 1024, 1024, 8),
     ("ragged", 500, 1000, 1000, 6),
     ("ragged, element loads", 37, 999, 1001, 5),
     ("M = 1, Gemma-2B q and o (oracle)", 1, 2048, 2048, 8),
@@ -800,7 +815,8 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     bits, with the plan and the kernels' registers; each shape also with
     the other split count (one split where the plan splits, two where it
     does not), and with x and dy one element off 16-byte alignment
-    (element loads); times at the training path's shape and at M = 1; dA/dB
+    (element loads); times at the training and pretraining paths' shapes
+    (``TIMED_M``; dA/dB also at M 2048) and at M = 1; dA/dB
     at every shape and at M = 4096 against the plain and split plain
     versions (``hold_grad_ab``); the backward through ``apply_lora``'s
     autograd Function against autograd through the plain version; then
@@ -838,6 +854,25 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
         f"{lora_mod.cluster_slots(lib, 0, 8)}, 16 "
         f"{lora_mod.cluster_slots(lib, 0, 16)}; two an SM would be "
         f"{lora_mod.BLOCKS_PER_SM * sms}")
+
+    def time_grad_ab(x, xa, dy, g):
+        """dA/dB's time, its plain version's, cuBLAS's two products (a
+        pair of calls, not one) and its bound."""
+        m, k = x.shape
+        n, r = dy.shape[1], xa.shape[1]
+        times = [time_ms(fn) for fn in (
+            lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale),
+            lambda: lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, scale),
+            lambda: (x.T @ g, xa.T @ dy))]
+        bd = bound(nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
+                   2 * m * r * (k + n), torch.float32)
+        log(f"  lora_matmul_grad_ab ({m}, {k}, {n}, R {r}): ms "
+            f"{times[0]:.4f} plain_ms {times[1]:.4f} library_ms null (no "
+            f"single PyTorch call; the cuBLAS pair x^T @ g and xa^T @ dy, two "
+            f"calls: {times[2]:.4f} ms) bound_ms {bd['bound_ms']:.5f} "
+            f"({bd['bound_by']})")
+        return times, bd
+
     for label, m, k, n, r in LORA_SHAPES:
         log(f"  {label}: x ({m}, {k}), W0 ({k}, {n}), R {r}")
         for dtype in (torch.float32, torch.bfloat16):
@@ -869,7 +904,7 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
             compare(f"{dtype} forward, x one element off 16-byte alignment "
                     f"(element loads)", got_o, want)
             same_bits("lora_matmul forward, element loads", got_o, o_call)
-            if dtype == torch.float32 and m == 512:
+            if dtype == torch.float32 and m in TIMED_M:
                 ms = time_ms(call)
                 plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
                     x, w0, a, b, scale))
@@ -880,9 +915,9 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                     f"null (no single PyTorch call computes the fused "
                     f"function; cuBLAS x @ W0 alone {cublas_ms:.4f} ms) "
                     f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
-                rows["lora_matmul"] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms,
-                                       "library_ms": None, **bd}
+                rows.setdefault("lora_matmul", {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, **bd})
             elif dtype == torch.float32 and m == 1:
                 plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
                     x, w0, a, b, scale))
@@ -926,7 +961,7 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
             compare_scaled("    dx, dy one element off 16-byte alignment "
                            "(element loads)", got_o, dx_ref, 1e-5, why)
             same_bits("lora_matmul_dx, element loads", got_o, o_call)
-            if m == 512:
+            if m in TIMED_M:
                 ms, plain_ms = time_ms(call), time_ms(
                     lambda: lora_mod.lora_matmul_dx_plain(dy, w0, a, b,
                                                           scale))
@@ -939,9 +974,9 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                     f"dy @ W0^T alone {cublas_ms:.4f} ms; g alone "
                     f"{time_ms(g_call):.4f} ms) bound_ms "
                     f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
-                rows["lora_matmul_dx"] = {"max_abs_err": dx_err, "ms": ms,
-                                          "plain_ms": plain_ms,
-                                          "library_ms": None, **bd}
+                rows.setdefault("lora_matmul_dx", {
+                    "max_abs_err": dx_err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, **bd})
             elif m == 1:
                 plain_ms = time_ms(lambda: lora_mod.lora_matmul_dx_plain(
                     dy, w0, a, b, scale))
@@ -950,25 +985,9 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                     f"{time_ms(lambda: dy @ w0.T):.4f}")
             hold_grad_ab(torch, ops, lora_mod, lib, x, xa_ref, dy, g_ref,
                          scale, why, off16)
+            if m == 2048:
+                time_grad_ab(x, xa_ref, dy, g_ref)
     log("  the same bits on a second call: every case above")
-
-    def time_grad_ab(x, xa, dy, g):
-        """dA/dB's time, its plain version's, cuBLAS's two products (a
-        pair of calls, not one) and its bound."""
-        m, k = x.shape
-        n, r = dy.shape[1], xa.shape[1]
-        times = [time_ms(fn) for fn in (
-            lambda: ops.lora_matmul_grad_ab(x, xa, dy, g, scale),
-            lambda: lora_mod.lora_matmul_grad_ab_plain(x, xa, dy, g, scale),
-            lambda: (x.T @ g, xa.T @ dy))]
-        bd = bound(nbytes(x, xa, dy, g) + (k * r + r * n) * 4,
-                   2 * m * r * (k + n), torch.float32)
-        log(f"  lora_matmul_grad_ab ({m}, {k}, {n}, R {r}): ms "
-            f"{times[0]:.4f} plain_ms {times[1]:.4f} library_ms null (no "
-            f"single PyTorch call; the cuBLAS pair x^T @ g and xa^T @ dy, two "
-            f"calls: {times[2]:.4f} ms) bound_ms {bd['bound_ms']:.5f} "
-            f"({bd['bound_by']})")
-        return times, bd
 
     # dA/dB at M = 4096 (slabs of hundreds of rows): held and timed
     m, k, n, r = 4096, 1024, 1024, 8
@@ -1317,13 +1336,28 @@ def train_group(key: str) -> str:
                  if any(k in key for k in keys)), "other")
 
 
-def profile_window(torch, label, fn, group=serve_group) -> list:
+def group_ms(events, group, annotation=None) -> dict:
+    """Device ms by group of ``profile_window``'s events; a kernel launched
+    inside the ``annotation`` range counts under the annotation's name."""
+    by_group = {}
+    for key, ms, _ in events:
+        g = annotation if annotation is not None and key.startswith(
+            f"{annotation}: ") else group(key)
+        by_group[g] = by_group.get(g, 0.0) + ms
+    return by_group
+
+
+def profile_window(torch, label, fn, group=serve_group,
+                   annotation=None) -> list:
     """``fn`` under torch.profiler: the device-busy share of its wall time
     (the sum of the traced kernels, copies and fills over the host time
     of the call) and device time by group and by kernel. The device events
     are read from the exported trace, which the profiler writes from its
     C++ side: ``key_averages`` builds a Python object an event and spent
-    ~95 s on a federated round's events. Returns (name, ms, launches) per
+    ~95 s on a federated round's events. With ``annotation``, the device
+    events launched from inside a ``record_function(annotation)`` range
+    (matched through the launch's correlation id) form a group of that
+    name, keyed "annotation: kernel". Returns (name, ms, launches) per
     kernel, the largest first."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -1339,19 +1373,30 @@ def profile_window(torch, label, fn, group=serve_group) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in trace
+             if e.get("cat") == "user_annotation"
+             and e.get("name") == annotation]
+    inside = {e["args"]["correlation"] for e in trace
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})
+              and any(a <= e["ts"] <= b for a, b in spans)}
     by_kernel = {}
     for e in trace:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            ms, n = by_kernel.get(e["name"], (0.0, 0))
-            by_kernel[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+            key = e["name"]
+            if e.get("args", {}).get("correlation") in inside:
+                key = f"{annotation}: {key}"
+            ms, n = by_kernel.get(key, (0.0, 0))
+            by_kernel[key] = (ms + e["dur"] / 1e3, n + 1)
     if not by_kernel:
         raise AssertionError(f"profiled {label}: no device events traced")
+    if annotation is not None and not inside:
+        raise AssertionError(f"profiled {label}: no device event launched "
+                             f"inside {annotation!r}")
     events = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()),
                     key=lambda e: -e[1])
     device_ms = sum(ms for _, ms, _ in events)
-    by_group = {}
-    for key, ms, _ in events:
-        by_group[group(key)] = by_group.get(group(key), 0.0) + ms
+    by_group = group_ms(events, group, annotation)
     log(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
         f"{device_ms:.1f} ms ({100 * device_ms / (wall * 1e3):.1f}% of "
         f"wall); device ms by group: "
@@ -2338,6 +2383,40 @@ def round_scheduler(torch, np, label, expect, profile):
     return ChipRound()
 
 
+def round_expect(cfg, scfg):
+    """(d): the launches a round of ``scfg`` makes, as ``expect(session)``
+    for ``round_scheduler``: 48 of each lora kernel a local step (q and v
+    in every layer), 48 forward for the eval, recon_agg once a round of
+    hlora under ``exact`` or ``randomized``."""
+    from repro_torch.fed import SimConfig
+    per_step = 2 * cfg.num_layers
+    steps = scfg.clients_per_round * SimConfig().local_steps
+    recon = int(scfg.strategy == "hlora"
+                and scfg.svd_method in ("exact", "randomized"))
+
+    def expect(session):
+        return {"lora_matmul": per_step * (steps + 1),   # + eval's
+                "lora_matmul_dx": per_step * steps,
+                "lora_matmul_grad_ab": per_step * steps,
+                "recon_agg": recon}
+    return expect
+
+
+def hold_history(label, rounds, hist, t0) -> None:
+    """(e): every round ran, with finite losses and eval metrics."""
+    values = hist["train_loss"] + hist["eval_acc"] + hist["eval_loss"]
+    ok = len(hist["round"]) == rounds and all(
+        math.isfinite(v) for v in values)
+    log(f"  {label}: {rounds} rounds in {time.perf_counter() - t0:.1f} "
+        f"s; train loss {[round(v, 5) for v in hist['train_loss']]}, "
+        f"eval acc {[round(v, 4) for v in hist['eval_acc']]}, eval loss "
+        f"{[round(v, 5) for v in hist['eval_loss']]}, downlink bytes "
+        f"{hist['downlink_bytes']}, uplink bytes {hist['uplink_bytes']}; "
+        f"(e) finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: history {hist}")
+
+
 def run_rounds(torch, np, base) -> dict:
     """Phase 8: ``run_experiment`` on phase 6's full-width base, each run
     driven by ``round_scheduler``. Returns the lora and recon_agg launches
@@ -2346,38 +2425,17 @@ def run_rounds(torch, np, base) -> dict:
     from repro_torch.fed import ServerConfig, SimConfig, run_experiment
 
     cfg = get_config("roberta-large")
-    sim_steps = SimConfig().local_steps
-    per_step = 2 * cfg.num_layers        # q and v in every layer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     totals, walls, parts = {}, [], {p: [] for p in ROUND_PARTS}
     for i, (label, rounds, kw) in enumerate(ROUND_RUNS):
         scfg = ServerConfig(**ROUND_SERVER, **kw)
-        recon = 1 if scfg.svd_method in ("exact", "randomized") and \
-            scfg.strategy == "hlora" else 0
-
-        def expect(session, recon=recon):
-            steps = scfg.clients_per_round * sim_steps
-            return {"lora_matmul": per_step * (steps + 1),   # + eval's
-                    "lora_matmul_dx": per_step * steps,
-                    "lora_matmul_grad_ab": per_step * steps,
-                    "recon_agg": recon}
-
-        sched = round_scheduler(torch, np, label, expect, profile=i == 0)
+        sched = round_scheduler(torch, np, label, round_expect(cfg, scfg),
+                                profile=i == 0)
         t0 = time.perf_counter()
         hist = run_experiment(cfg, SimConfig(rounds=rounds), scfg,
                               base_params=base, scheduler=sched)
-        values = hist["train_loss"] + hist["eval_acc"] + hist["eval_loss"]
-        ok = len(hist["round"]) == rounds and all(
-            math.isfinite(v) for v in values)
-        log(f"  {label}: {rounds} rounds in {time.perf_counter() - t0:.1f} "
-            f"s; train loss {[round(v, 5) for v in hist['train_loss']]}, "
-            f"eval acc {[round(v, 4) for v in hist['eval_acc']]}, eval loss "
-            f"{[round(v, 5) for v in hist['eval_loss']]}, downlink bytes "
-            f"{hist['downlink_bytes']}, uplink bytes {hist['uplink_bytes']}; "
-            f"(e) finite {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{label}: history {hist}")
+        hold_history(label, rounds, hist, t0)
         for k, v in sched.launches.items():
             totals[k] = totals.get(k, 0) + v
         walls += [r["wall"] for r in sched.rounds]
@@ -2389,6 +2447,261 @@ def run_rounds(torch, np, base) -> dict:
         + ", ".join(f"{p} {np.median(v):.3f} s" for p, v in parts.items())
         + f"; peak memory {peak:.2f} GiB; {device_line()}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 9: backbone pretraining on full-width RoBERTa-large
+# ---------------------------------------------------------------------------
+
+# (a)'s rows: the first 8 of the first pretraining batch, on both sides.
+# Its limits are phase 6's (TRAIN_REL, TRAIN_LOSS_ATOL) for the same
+# reason: float32 sums in another order through 24 layers. One leaf is
+# held otherwise: the key bias bk adds q.bk to every score of a query's
+# row, which the softmax cancels, so its gradient is zero in exact
+# arithmetic and rounding noise on either side; each side's is held to
+# NOISE_REL of the largest entry of bq's gradient, and its stepped change
+# (lr times the sign of that noise) is not compared.
+PRETRAIN_ROWS = 8
+NOISE_REL = 1e-5
+NOISE_LEAF, NOISE_REF = ("layers", "attn", "bk"), ("layers", "attn", "bq")
+PRETRAIN_PROFILED = 3
+# (c): the paper's setting, as phase 8's first run, from the trained
+# backbone (base_params=None)
+PRETRAIN_ROUNDS = ("hlora factored, random ranks, pretrained backbone", 3,
+                   dict(strategy="hlora", svd_method="factored",
+                        rank_policy="random"))
+
+
+def _leaf_paths(tree) -> dict:
+    """{path: leaf} of a nested dict of tensors."""
+    from repro_torch.optim.optimizers import tree_leaves
+    return dict(zip(_paths(tree), tree_leaves(tree)))
+
+
+def _max_abs(t) -> float:
+    return float(t.detach().abs().max())
+
+
+def pretrain_step_against_cpu(torch, cfg, sim) -> None:
+    """(a) one pretraining step on the card against the CPU (plain
+    versions), the same weights on both sides (seed 0 on the CPU, copied to
+    the card) with trained-looking adapters (B small and random, so that
+    A's and the mask's gradients carry signal; at B = 0 both are exactly
+    0), the same rows: the loss, every leaf's gradient, and every leaf's
+    change after one AdamW step against the CPU side's."""
+    from repro_torch.fed import simulation
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw, apply_updates
+
+    t0 = time.perf_counter()
+    cpu = model_lib.init_params(cfg, seed=sim.seed, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for ad in cpu.lora.values():
+        ad["B"] = 0.05 * torch.randn(ad["B"].shape, generator=gen)
+    batch = next(simulation.pretrain_batches(cfg, sim))
+    batch = {k: torch.from_numpy(v[:PRETRAIN_ROWS]) for k, v in batch.items()}
+    res = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = cpu if dev == "cpu" else cpu.to_device(dev)
+        t1 = time.perf_counter()
+        loss, grads = simulation.pretrain_loss_and_grads(
+            params.tree(), {k: v.to(dev) for k, v in batch.items()}, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        tree = params.tree()
+        opt = adamw(sim.pretrain_lr)
+        upd, _ = opt.update(grads, opt.init(tree), tree)
+        after = apply_updates(tree, upd)
+        res[side] = dict(loss=float(loss), secs=secs,
+                         grads=_leaf_paths(grads), before=_leaf_paths(tree),
+                         after=_leaf_paths(after))
+        del params, grads, upd, after, tree
+    dl = abs(res["card"]["loss"] - res["cpu"]["loss"])
+    worst_g = worst_c = 0.0
+    flips = 0
+    for path, gc in res["cpu"]["grads"].items():
+        gg = res["card"]["grads"][path]
+        before = res["cpu"]["before"][path]
+        du_c = res["cpu"]["after"][path] - before
+        du_g = res["card"]["after"][path].cpu() - before
+        if path == NOISE_LEAF:
+            for side in ("cpu", "card"):
+                g, ref = (res[side]["grads"][p] for p in (path,
+                                                            NOISE_REF))
+                if _max_abs(g) > NOISE_REL * _max_abs(ref):
+                    raise AssertionError(
+                        f"pretraining step: {side} gradient of {path} "
+                        f"{_max_abs(g):.3e} is not rounding noise against "
+                        f"bq's {_max_abs(ref):.3e}")
+            continue
+        worst_g = max(worst_g, rel_err(gg, gc))
+        change = float(torch.linalg.vector_norm(du_c.double()))
+        if change == 0.0:
+            raise AssertionError(f"pretraining step: {path} did not move")
+        worst_c = max(worst_c, float(torch.linalg.vector_norm(
+            (du_g - du_c).double())) / change)
+        flips += int(((du_g * du_c) < 0).sum())
+    n = len(res["cpu"]["grads"])
+    ok = (dl <= TRAIN_LOSS_ATOL and worst_g <= TRAIN_REL
+          and worst_c <= TRAIN_REL)
+    log(f"  (a) one step of {PRETRAIN_ROWS} x {batch['tokens'].shape[1]} "
+        f"tokens: loss card {res['card']['loss']:.6f} cpu "
+        f"{res['cpu']['loss']:.6f} (|diff| {dl:.2e} <= "
+        f"{TRAIN_LOSS_ATOL:.0e}); gradient rel err per leaf max "
+        f"{worst_g:.2e} over {n - 1} leaves (<= {TRAIN_REL:.0e} of the "
+        f"norm); after one AdamW step (lr {sim.pretrain_lr}) ||card - cpu|| "
+        f"/ ||cpu change|| max {worst_c:.2e} (<= {TRAIN_REL:.0e}); elements "
+        f"whose update changed sign {flips}; bk's gradient rounding noise "
+        f"on both sides (<= {NOISE_REL:.0e} of bq's); step card "
+        f"{res['card']['secs'] * 1e3:.1f} ms, cpu "
+        f"{res['cpu']['secs'] * 1e3:.0f} ms; in "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"pretraining step: card and CPU disagree "
+                             f"(loss {dl}, gradients {worst_g}, step "
+                             f"{worst_c})")
+
+
+def _first_nonfinite(tree) -> str:
+    for path, t in _leaf_paths(tree).items():
+        if not bool(t.isfinite().all()):
+            return "/".join(path)
+    return "none"
+
+
+def run_pretraining(torch, np) -> dict:
+    """Phase 9. Returns the lora kernels' launches over (b)'s 150 steps
+    and (c)'s checked rounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import (ServerConfig, SimConfig, run_experiment,
+                                 simulation)
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, apply_updates
+
+    cfg = get_config("roberta-large")
+    sim = SimConfig()                 # 150 steps of 64 x 32, AdamW 1e-3
+    per_step = 2 * cfg.num_layers     # q and v in every layer
+    pretrain_step_against_cpu(torch, cfg, sim)
+    gc.collect()
+
+    # (b) pretrain_backbone at SimConfig's defaults, every step's loss,
+    # wall time and launches read through a hook on its gradient step
+    grad_step = simulation.pretrain_loss_and_grads
+    steps = []
+
+    def hooked(tree, batch, cfg_):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.reset_launches()
+        loss, grads = grad_step(tree, batch, cfg_)
+        launches = dict(ops.LAUNCHES)
+        value = float(loss)
+        if not math.isfinite(value):
+            raise AssertionError(
+                f"pretraining step {len(steps)}: loss {value}; first "
+                f"non-finite leaf of the weights "
+                f"{_first_nonfinite(tree)}, of the gradients "
+                f"{_first_nonfinite(grads)}")
+        steps.append(dict(start=start, loss=value, launches=launches))
+        return loss, grads
+
+    simulation.pretrain_loss_and_grads = hooked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        base = simulation.pretrain_backbone(cfg, sim, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        simulation.pretrain_loss_and_grads = grad_step
+    end = time.perf_counter()
+    wall = end - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect.update(lora_matmul=per_step, lora_matmul_dx=per_step,
+                  lora_matmul_grad_ab=per_step)
+    bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
+    walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    walls.append(end - steps[-1]["start"])
+    seq = next(simulation.pretrain_batches(cfg, sim))["tokens"].shape[1]
+    tokens = sim.pretrain_steps * simulation.PRETRAIN_BATCH * seq
+    shown = [(i, round(st["loss"], 5)) for i, st in enumerate(steps)
+             if i % 10 == 0 or i == len(steps) - 1]
+    log(f"  (b) pretrain_backbone: {len(steps)} steps of "
+        f"{simulation.PRETRAIN_BATCH} x {seq} tokens, AdamW lr "
+        f"{sim.pretrain_lr}, every parameter ({cfg.param_count() / 1e6:.1f} M)"
+        f" in {wall:.3f} s: {tokens / wall:.1f} tok/s; step p50 "
+        f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+        f"{max(walls) * 1e3:.3f}; synchronized at each step); peak memory "
+        f"{peak:.2f} GiB; losses (step, loss) {shown}; every loss finite")
+    log(f"  (b) launches a step: {steps[0]['launches']} (expect "
+        f"{per_step} of each lora kernel: q and v in {cfg.num_layers} "
+        f"layers, layer 0's dx with its GEMM; no other kernel of ours) "
+        f"{'ok' if not bad and len(steps) == sim.pretrain_steps else 'FAIL'}")
+    if bad or len(steps) != sim.pretrain_steps:
+        raise AssertionError(f"pretraining launches differ at steps {bad}: "
+                             f"{[steps[i]['launches'] for i in bad[:3]]}")
+    launches = {name: sum(st["launches"][name] for st in steps) for name in
+                ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+
+    # 3 more steps from the trained weights under the profiler, the
+    # optimizer's kernels apart (record_function)
+    from torch.profiler import record_function
+    tree = base.tree()
+    opt = adamw(sim.pretrain_lr)
+    state = opt.init(tree)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+               for _, b in zip(range(PRETRAIN_PROFILED),
+                               simulation.pretrain_batches(cfg, sim))]
+
+    def three_steps():
+        nonlocal tree, state
+        for batch in batches:
+            _, grads = simulation.pretrain_loss_and_grads(tree, batch, cfg)
+            with record_function("adamw"):
+                upd, state = opt.update(grads, state, tree)
+                tree = apply_updates(tree, upd)
+
+    events = profile_window(torch, f"{PRETRAIN_PROFILED} pretraining steps",
+                            three_steps, group=train_group,
+                            annotation="adamw")
+    groups = group_ms(events, train_group, "adamw")
+    log("  (b) device ms a step: " + ", ".join(
+        f"{g} {v / PRETRAIN_PROFILED:.3f}" for g, v in sorted(groups.items())))
+    del tree, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the paper's round from the trained backbone: base_params=None
+    # must hit (b)'s cache, so no pretraining step runs again
+    label, rounds, kw = PRETRAIN_ROUNDS
+    scfg = ServerConfig(**ROUND_SERVER, **kw)
+    sched = round_scheduler(torch, np, label, round_expect(cfg, scfg),
+                            profile=False)
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return grad_step(*args)
+
+    simulation.pretrain_loss_and_grads = counted
+    t0 = time.perf_counter()
+    try:
+        hist = run_experiment(cfg, SimConfig(rounds=rounds), scfg,
+                              scheduler=sched)
+    finally:
+        simulation.pretrain_loss_and_grads = grad_step
+    hold_history(label, rounds, hist, t0)
+    log(f"  (c) base_params=None took the cached backbone: pretraining "
+        f"steps run again {len(calls)} "
+        f"{'ok' if not calls else 'FAIL'}")
+    if calls:
+        raise AssertionError("run_experiment(base_params=None) pretrained "
+                             "again")
+    for k in launches:
+        launches[k] += sched.launches[k]
+    return launches
+
 
 
 def main() -> int:
@@ -2460,6 +2773,17 @@ def main() -> int:
     for name in ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab",
                  "recon_agg"):
         launches[name] += round_launches[name]
+    del base                          # phase 6's backbone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[9] backbone pretraining: full-width roberta-large, SimConfig "
+        "defaults")
+    t0 = time.perf_counter()
+    # and a third counted path for the lora kernels: pretraining's steps
+    # and the rounds from the trained backbone
+    for name, n in run_pretraining(torch, np).items():
+        launches[name] += n
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

@@ -54,7 +54,11 @@ def tree_init(gen: torch.Generator, specs: Dict[str, Tuple[int, int]],
 
 
 def lora_scale(adapter: Adapter, alpha: float) -> torch.Tensor:
-    return alpha / torch.clamp(adapter["mask"].sum(-1), min=1.0)
+    """alpha / max(Σ mask, 1). ``torch.maximum`` (not ``clamp``) so that a
+    trained mask summing to exactly 1 splits its gradient between the two
+    sides as ``jnp.maximum`` does."""
+    r_eff = adapter["mask"].sum(-1)
+    return alpha / torch.maximum(r_eff, r_eff.new_ones(()))
 
 
 def masked_factors(adapter: Adapter) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,9 +76,13 @@ def delta_w(adapter: Adapter, alpha: float) -> torch.Tensor:
 class _LoraMatmul(torch.autograd.Function):
     """y = x @ W0 + s (x @ A) @ B over 2-D x (M, K) and masked factors,
     differentiable in x, A and B through ``ops``' backward (the CUDA
-    kernels on the card, their plain versions on the CPU). W0 and the
-    scale get no gradient. Masking happens outside, so autograd's mask
-    product gives masked rank directions exactly zero gradient."""
+    kernels on the card, their plain versions on the CPU), and in W0 and
+    the scale where they require grad (backbone pretraining): dW0 = x^T dy
+    is one float32 product (cuBLAS on the card, as every unadapted
+    projection's weight gradient), and ds = Σ xa * g from the bottleneck
+    and the dx op's unscaled g = dy B^T. Masking happens outside, so
+    autograd's mask product gives masked rank directions exactly zero
+    gradient, and carries dA, dB and ds on into the mask."""
 
     @staticmethod
     def forward(ctx, x, w0, a, b, scale):
@@ -85,16 +93,20 @@ class _LoraMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w0, a, b, scale, xa = ctx.saved_tensors
-        need_x, _, need_a, need_b, _ = ctx.needs_input_grad
-        # g = dy @ B^T always; dx only where x needs it (not at layer 0,
-        # whose input is the norm of the frozen embedding)
-        dx, g = ops.lora_matmul_dx(dy.contiguous(), w0, a, b, scale,
-                                   need_dx=need_x)
-        da = db = None
+        need_x, need_w0, need_a, need_b, need_s = ctx.needs_input_grad
+        dy = dy.contiguous()
+        # g = dy @ B^T always; dx only where x needs it (not at layer 0
+        # of client training, whose input is the norm of the frozen
+        # embedding)
+        dx, g = ops.lora_matmul_dx(dy, w0, a, b, scale, need_dx=need_x)
+        da = db = dw0 = ds = None
         if need_a or need_b:
-            da, db = ops.lora_matmul_grad_ab(x, xa, dy.contiguous(), g,
-                                             scale)
-        return dx, None, da, db, None
+            da, db = ops.lora_matmul_grad_ab(x, xa, dy, g, scale)
+        if need_w0:
+            dw0 = torch.matmul(x.t(), dy).to(w0.dtype)
+        if need_s:
+            ds = (xa * g).sum().reshape(scale.shape)
+        return dx, dw0, da, db, ds
 
 
 def _lora_2d(x: torch.Tensor, w0: torch.Tensor, a: torch.Tensor,
@@ -106,8 +118,8 @@ def _lora_2d(x: torch.Tensor, w0: torch.Tensor, a: torch.Tensor,
     w0 = w0.contiguous()
     a, b = a.to(x.dtype).contiguous(), b.to(x.dtype).contiguous()
     sc = sc.to(torch.float32)
-    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad
-                                    or b.requires_grad):
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w0, a, b, sc)):
         y = _LoraMatmul.apply(x2, w0, a, b, sc)
     else:
         y = ops.lora_matmul(x2, w0, a, b, sc)
@@ -120,12 +132,11 @@ def apply_lora(x: torch.Tensor, w0: torch.Tensor, adapter: Optional[Adapter],
     as in the reference, through the fused ``ops.lora_matmul`` (a
     ``torch.autograd.Function`` when a gradient is wanted). The scale
     stays a device tensor. Stacked adapters (leading dims on A, B and mask,
-    broadcast against x's and w0's) run one fused call per entry. W0 is
-    frozen: a W0 that requires grad raises."""
+    broadcast against x's and w0's) run one fused call per entry. W0, the
+    factors and the mask may each require grad (pretraining trains them
+    all; client training only A and B)."""
     if adapter is None:
         return x @ w0
-    if w0.requires_grad:
-        raise ValueError("apply_lora: W0 must be frozen (no dW0 kernel)")
     a, b = masked_factors(adapter)
     sc = lora_scale(adapter, alpha)
     if a.ndim == 2 and w0.ndim == 2:

@@ -6,8 +6,9 @@ from repro_torch.fed.messages import Broadcast, ClientUpdate, payload_bytes
 from repro_torch.fed.schedulers import Scheduler, SyncRound
 from repro_torch.fed.session import FedSession, ServerConfig, assign_ranks
 from repro_torch.fed.simulation import (SimConfig, make_experiment_setup,
-                                        rounds_to_target, run_centralized,
-                                        run_experiment, stack_client_data)
+                                        pretrain_backbone, rounds_to_target,
+                                        run_centralized, run_experiment,
+                                        stack_client_data)
 from repro_torch.fed.strategies import (AggregationStrategy, FLoRAStacking,
                                         HLoRA, NaiveAvg, from_name,
                                         register_strategy)
@@ -17,6 +18,7 @@ __all__ = ["split_adapters", "join_adapters", "split_head", "client_params",
            "evaluate", "SimConfig", "stack_client_data", "Broadcast",
            "ClientUpdate", "payload_bytes", "Scheduler", "SyncRound",
            "FedSession", "ServerConfig", "assign_ranks",
-           "make_experiment_setup", "run_experiment", "run_centralized",
-           "rounds_to_target", "AggregationStrategy", "NaiveAvg", "HLoRA",
-           "FLoRAStacking", "from_name", "register_strategy"]
+           "make_experiment_setup", "pretrain_backbone", "run_experiment",
+           "run_centralized", "rounds_to_target", "AggregationStrategy",
+           "NaiveAvg", "HLoRA", "FLoRAStacking", "from_name",
+           "register_strategy"]

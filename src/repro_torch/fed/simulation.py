@@ -9,17 +9,17 @@ data, the cohort trainer and the eval function, then hands control to a
 returns the history {round, train_loss, eval_acc, eval_loss,
 downlink_bytes, uplink_bytes, health}.
 
-The caller supplies the backbone (``base_params``, a ``Transformer`` on
-``device``): the reference's ``pretrain_backbone`` trains every weight,
-which needs a backward to W0 that the port's LoRA op does not have yet,
-so ``base_params=None`` raises. ``BufferedAsync`` and ``SemiSync`` are
-not ported.
+The backbone is the caller's (``base_params``, a ``Transformer`` on
+``device``) or, with ``base_params=None``, ``pretrain_backbone``'s: every
+weight (W0, norms, embedding, head, and the LoRA factors and masks)
+trained by AdamW on the synthetic qqp stand-in, as in the reference, then
+frozen. ``BufferedAsync`` and ``SemiSync`` are not ported.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +34,10 @@ from repro_torch.fed.client import (evaluate, join_adapters,
                                     split_adapters, split_head)
 from repro_torch.fed.schedulers import Scheduler, SyncRound
 from repro_torch.fed.session import FedSession, ServerConfig
-from repro_torch.optim import adamw
+from repro_torch.models import model as model_lib
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim import adamw, apply_updates
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 
 @dataclass
@@ -66,12 +69,72 @@ def stack_client_data(tokens: np.ndarray, labels: np.ndarray,
             "labels": torch.from_numpy(np.stack([p["labels"] for p in per]))}
 
 
-def _need_base(base_params) -> None:
-    if base_params is None:
-        raise NotImplementedError(
-            "base_params=None would pretrain the backbone "
-            "(pretrain_backbone), which is not ported yet (ROADMAP.md "
-            "queue 1 item 4: it needs a backward to W0); pass base_params")
+# ---------------------------------------------------------------------------
+# Backbone "pretraining": the paper starts from RoBERTa-large. As in the
+# reference, a pretrained backbone is stood up by full-parameter training on
+# the easy lexical-overlap task (the qqp stand-in, another seed than the
+# federated shards), then frozen; LoRA then adapts it to the task.
+# ---------------------------------------------------------------------------
+
+_PRETRAIN_STORE: Dict = {}  # backbone cache: same cfg+seed ⇒ same backbone
+PRETRAIN_BATCH = 64
+
+
+def pretrain_batches(cfg: ModelConfig, sim: SimConfig):
+    """The reference's pretraining minibatches, step by step: {"tokens"
+    (64, S), "labels" (64,)} numpy arrays, 64 picks a step out of the qqp
+    stand-in, drawn from its own seeded stream."""
+    rng = np.random.default_rng(derive_seed(sim.seed, "pretrain-batches"))
+    tokens, labels = make_pair_classification(
+        "qqp", sim.num_examples, seed=sim.seed + 777,
+        vocab_size=cfg.vocab_size)
+    for _ in range(sim.pretrain_steps):
+        picks = rng.integers(0, len(tokens), size=PRETRAIN_BATCH)
+        yield {"tokens": tokens[picks], "labels": labels[picks]}
+
+
+def pretrain_loss_and_grads(tree: Dict, batch: Dict[str, torch.Tensor],
+                            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """(loss, d loss / d every tensor) for one minibatch of a weight tree
+    in ``Transformer.tree()``'s layout, the gradients in the same layout
+    (the mask included), both detached. ``tree`` is not touched: the
+    gradient is taken in a module built from its tensors whose own
+    Parameters, adapters and head require grad."""
+    live = Transformer.from_tree(cfg, tree_map(lambda t: t.detach(), tree))
+    leaves = live.tree()
+    for t in tree_leaves(leaves):
+        t.requires_grad_(True)
+    loss, _ = model_lib.loss_fn(live, batch, cfg)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
+    return loss.detach(), tree_map(lambda _: next(grads), leaves)
+
+
+def pretrain_backbone(cfg: ModelConfig, sim: SimConfig, device=None
+                      ) -> Transformer:
+    """``sim.pretrain_steps`` full-parameter AdamW steps (lr
+    ``sim.pretrain_lr``) from ``init_params(cfg, sim.seed)`` on ``device``
+    (None = CUDA); 0 steps return the initial weights. Cached per
+    (cfg.name, sim.seed, sim.pretrain_steps, sim.pretrain_lr, device): as
+    in the reference, ``num_examples`` is not in the key, so a second call
+    that differs only there gets the first call's backbone."""
+    dev = resolve_device(device)
+    key = (cfg.name, sim.seed, sim.pretrain_steps, sim.pretrain_lr, str(dev))
+    if key in _PRETRAIN_STORE:
+        return _PRETRAIN_STORE[key]
+    params = model_lib.init_params(cfg, sim.seed, device=dev)
+    if sim.pretrain_steps > 0:
+        tree = tree_map(lambda t: t.detach(), params.tree())
+        opt = adamw(sim.pretrain_lr)
+        opt_state = opt.init(tree)
+        for batch in pretrain_batches(cfg, sim):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in batch.items()}
+            _, grads = pretrain_loss_and_grads(tree, batch, cfg)
+            upd, opt_state = opt.update(grads, opt_state, tree)
+            tree = apply_updates(tree, upd)
+        params = Transformer.from_tree(cfg, tree)
+    _PRETRAIN_STORE[key] = params
+    return params
 
 
 def _eval_batch(cfg: ModelConfig, sim: SimConfig, dev: torch.device):
@@ -86,9 +149,11 @@ def make_experiment_setup(cfg: ModelConfig, sim: SimConfig,
                           scfg: ServerConfig, base_params=None, device=None):
     """Data, trainers and eval shared by the schedulers, on ``device``
     (None = CUDA). Returns ``(session_kwargs, cohort_train, local_train,
-    data_fn, client_data_fn, eval_fn)``."""
-    _need_base(base_params)
+    data_fn, client_data_fn, eval_fn)``. ``base_params=None`` pretrains
+    the backbone (``pretrain_backbone``, cached)."""
     dev = resolve_device(device)
+    if base_params is None:
+        base_params = pretrain_backbone(cfg, sim, dev)
     frozen, _ = split_head(base_params)
 
     tokens, labels = make_pair_classification(
@@ -160,9 +225,12 @@ def run_centralized(
     steps: Optional[int] = None, base_params=None, device=None,
 ) -> Dict[str, List[float]]:
     """Centralized LoRA fine-tuning, Table 1's upper-bound row, on
-    ``device`` (None = CUDA)."""
-    _need_base(base_params)
+    ``device`` (None = CUDA), from the backbone's own LoRA factors with
+    their mask reset to rank ``rank``; ``base_params=None`` pretrains the
+    backbone (``pretrain_backbone``, cached)."""
     dev = resolve_device(device)
+    if base_params is None:
+        base_params = pretrain_backbone(cfg, sim, dev)
     frozen, head = split_head(base_params)
     r_max = cfg.lora.r_max
     lora0 = {t: dict(ad) for t, ad in base_params.lora.items()}

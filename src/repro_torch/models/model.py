@@ -7,7 +7,10 @@ encoder classifier branches).
     init_cache(cfg, batch, max_seq, dtype)       -> cache dict
     decode_step(params, cache, token, pos, cfg)  -> (logits, cache)
 
-``batch``: {"tokens": (B, S) int, "labels": (B,) int}. Other
+``batch``: {"tokens": (B, S) int, "labels": (B,) int}. ``loss_fn`` is
+differentiable in whichever tensors of ``params`` require grad: the
+adapters and head in client training, every tensor in backbone
+pretraining (``fed/simulation.py::pretrain_backbone``). Other
 ``arch_type``s raise ``NotImplementedError``; so does the next-token LM
 loss, which waits for the training launcher.
 """

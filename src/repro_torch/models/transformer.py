@@ -7,19 +7,24 @@ stacked layout: every per-layer weight is one ``(L, ...)`` tensor and
 projections are ``(d_in, d_out)``, so ``x @ W0`` is the same product on
 both sides and ``interop.py`` moves weights across one to one. The
 reference's ``lax.scan`` over layers becomes a Python loop over
-``Transformer.layer(l)``, which hands out per-layer views.
+per-layer views (``unbind_layers`` in training and evaluation,
+``Transformer.layer(l)`` in decode).
 
 ``Transformer.lora`` is the reference's ``params["lora"]``:
 ``{target: {"A": (L, d_in, r), "B": (L, r, d_out), "mask": (L, r)}}``;
 ``Transformer.cls`` holds a classifier's ``cls_head`` (d, C) and
 ``cls_bias`` (C,) (empty otherwise). Both are plain dicts of tensors, so a
 trainer can put leaves that require grad in their place (``fed/client``).
+Every weight is wrapped frozen; backbone pretraining differentiates a
+fresh module built from :meth:`Transformer.tree` whose own Parameters it
+sets to require grad (``fed/simulation.py``), and rebuilds the updated
+module with :meth:`Transformer.from_tree`.
 """
 from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -82,6 +87,25 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.lm_head if self.lm_head is not None else self.embed.T
 
+    def tree(self) -> Dict:
+        """Every tensor in the reference's ``params`` layout: ``embed``,
+        ``layers``, ``final_norm``, ``lm_head`` (untied decoders),
+        ``cls_head`` and ``cls_bias`` (classifiers) and ``lora``. The
+        weights are this module's own Parameters, so a gradient taken
+        with respect to them is one of the module's forward."""
+        tree = {"embed": self.embed, "final_norm": self.final_norm.as_dict(),
+                "layers": {g: self.layers[g].as_dict() for g in self.GROUPS},
+                **self.cls, "lora": self.lora}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
+    @classmethod
+    def from_tree(cls, cfg: ModelConfig, tree: Dict) -> "Transformer":
+        """The way back from :meth:`tree`: a frozen module wrapping the
+        tree's tensors (no copies)."""
+        return cls(cfg, tree, tree["lora"])
+
     def to_device(self, device) -> "Transformer":
         """A copy with every tensor (weights, adapters, head) on
         ``device``, e.g. the same weights on the CPU and on the card."""
@@ -90,12 +114,7 @@ class Transformer(nn.Module):
                 return {k: move(v) for k, v in node.items()}
             return node.detach().to(device)
 
-        tree = {"embed": self.embed, "final_norm": self.final_norm.as_dict(),
-                "layers": {g: self.layers[g].as_dict() for g in self.GROUPS},
-                **self.cls}
-        if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
-        return Transformer(self.cfg, move(tree), move(self.lora))
+        return Transformer.from_tree(self.cfg, move(self.tree()))
 
     def replace(self, group: str, name: str, value: torch.Tensor
                 ) -> "Transformer":
@@ -209,6 +228,17 @@ def layer_slice(tree: Dict, index: int) -> Dict:
             for t, leaf in tree.items()}
 
 
+def unbind_layers(tree: Dict, num_layers: int) -> List[Dict]:
+    """{name: {key: (L, ...) tensor}} -> every layer's views, each stacked
+    tensor unbound once. Autograd then gathers a trainable stack's
+    per-layer gradients with one stack, where ``layer_slice``'s index
+    views would each add a zero-filled (L, ...) gradient: L^2 traffic."""
+    cols = {t: {k: v.unbind(0) for k, v in leaf.items()}
+            for t, leaf in tree.items()}
+    return [{t: {k: v[i] for k, v in leaf.items()} for t, leaf in cols.items()}
+            for i in range(num_layers)]
+
+
 def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
                   *, causal: bool, positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm block over a whole sequence. x: (B, S, d)."""
@@ -225,8 +255,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             causal: bool = True) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V), or (B, C) for a classifier
     (CLS pooling: the final norm of position 0). Differentiable in
-    ``params.lora`` and ``params.cls``; attention is the plain masked
-    softmax, as in the reference's training path."""
+    every tensor of ``params`` that requires grad; attention is the plain
+    masked softmax, as in the reference's training path."""
     b, s = tokens.shape
     x = params.embed[tokens.long()]                          # (B, S, d)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -234,10 +264,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         # content scaled up so absolute positions don't swamp it
         x = x * math.sqrt(cfg.d_model) + sinusoidal_positions(
             positions, cfg.d_model).to(x.dtype)
-    for layer in range(cfg.num_layers):
-        x = layer_forward(x, params.layer(layer),
-                          layer_slice(params.lora, layer), cfg,
-                          causal=causal, positions=positions)
+    stacked = {g: params.layers[g].as_dict() for g in Transformer.GROUPS}
+    for lp, ad in zip(unbind_layers(stacked, cfg.num_layers),
+                      unbind_layers(params.lora, cfg.num_layers)):
+        x = layer_forward(x, lp, ad, cfg, causal=causal,
+                          positions=positions)
     x = norm(x, params.final_norm.as_dict())
     if cfg.num_classes:
         return x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"]

@@ -467,10 +467,6 @@ def test_round_refusals(weights):
                              tparams, device="cpu")
     with pytest.raises(NotImplementedError, match="topology"):
         t_sched.SyncRound(topology=_Stub())
-    with pytest.raises(NotImplementedError, match="pretrain_backbone"):
-        t_sim.run_experiment(cfg, t_sim.SimConfig(), scfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="pretrain_backbone"):
-        t_sim.run_centralized(cfg, t_sim.SimConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="BufferedAsync"):
         t_sim.run_experiment(cfg, t_sim.SimConfig(), scfg,
                              base_params=tparams,

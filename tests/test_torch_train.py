@@ -180,11 +180,23 @@ def test_apply_lora_gradcheck_float64():
 
 
 def test_apply_lora_refuses_a_trainable_w0_and_passes_no_adapter():
-    x, w0 = torch.randn(2, 6), torch.randn(6, 5)
+    """A trainable W0 (backbone pretraining) is taken, not refused: it
+    gets dW0 = x2^T dy over x's rows flattened, and no other input's
+    gradient changes; no adapter still gives ``x @ w0``."""
+    x, w0 = torch.randn(2, 3, 6), torch.randn(6, 5)
+    dy = torch.randn(2, 3, 5)
     ad = {"A": torch.randn(6, 4), "B": torch.randn(4, 5),
           "mask": t_lora.make_rank_mask(2, 4)}
-    with pytest.raises(ValueError, match="frozen"):
-        t_lora.apply_lora(x, w0.clone().requires_grad_(True), ad, 16.0)
+    xt = x.clone().requires_grad_(True)
+    y = t_lora.apply_lora(xt, w0, ad, 16.0)
+    dx_frozen, = torch.autograd.grad(y, xt, dy)
+    wt = w0.clone().requires_grad_(True)
+    y = t_lora.apply_lora(xt, wt, ad, 16.0)
+    dx, dw0 = torch.autograd.grad(y, (xt, wt), dy)
+    assert torch.equal(dx, dx_frozen)
+    np.testing.assert_allclose(
+        dw0.numpy(), (x.reshape(-1, 6).T @ dy.reshape(-1, 5)).numpy(),
+        rtol=1e-5, atol=1e-5)
     assert torch.equal(t_lora.apply_lora(x, w0, None, 16.0), x @ w0)
 
 
