@@ -93,7 +93,22 @@ Phases, each of which raises on failure:
    optimizer's device time apart; (c) 3 rounds of phase 8's hlora
    ``factored`` run through ``run_experiment(base_params=None)``, which
    must take (b)'s cached backbone, with phase 8's checks on every round;
-10. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+10. the training driver and checkpoint / resume on full-width
+   RoBERTa-large: (a) ``repro_torch.launch.train.main`` in process
+   (``--full-config``, hlora ``factored``, random ranks, 16 clients, 4 a
+   round, 2 rounds, ``--ckpt-dir``), which must take phase 9's cached
+   backbone (no pretraining step) and launch exactly 48 of each lora kernel
+   a local step and 48 forward an eval; its checkpoint and
+   ``history.json``, read back through the port's store onto the card and
+   the CPU, equal to what it returned and printed; (b) phase 8's hlora
+   ``randomized`` run under the spectrum policy with per-target ranks on
+   phase 9's backbone, 3 rounds straight against 2 rounds, ``save``,
+   ``FedSession.restore`` into a fresh session and 1 more: cohorts, ranks,
+   ``target_ranks``, bytes and launches (recon_agg once a round) equal,
+   and the losses, eval metrics, global factors and head bit for bit
+   (held otherwise to phase 6's loss and phase 7's update limits, naming
+   what differs);
+11. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -2351,7 +2366,10 @@ def round_scheduler(torch, np, label, expect, profile):
                                          f"{got} != {want}")
                 for k, v in got.items():
                     self.launches[k] = self.launches.get(k, 0) + v
-                self.rounds.append(dict(cur, wall=wall))
+                self.rounds.append(dict(
+                    cur, wall=wall, launches=got,
+                    post_ranks=session.ranks.tolist(),
+                    target_ranks=session.target_ranks))
                 return m
 
             session.sample_cohort = sample
@@ -2704,6 +2722,260 @@ def run_pretraining(torch, np) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training driver, and checkpoint / resume, on full-width
+# RoBERTa-large
+# ---------------------------------------------------------------------------
+
+# (a) the driver in process, the paper's setting on phase 9's backbone (its
+# --pretrain-steps and --seed give phase 9's cache key; the driver's other
+# defaults: 8 local steps of 16 rows, Dirichlet alpha 0.3, 4096 examples)
+DRIVER_ARGS = ["--full-config", "--strategy", "hlora", "--svd-method",
+               "factored", "--rank-policy", "random", "--clients", "16",
+               "--cohort", "4", "--rounds", "2", "--pretrain-steps", "150",
+               "--seed", "0"]
+DRIVER_CKPT = os.path.join(ROOT, "build", "phase10", "driver")
+# (b) phase 8's hlora randomized run under the spectrum policy with
+# per-target ranks, 3 rounds straight against 2 + save + restore + 1
+RESUME_RUN = ("hlora randomized, spectrum ranks per target", 3,
+              dict(strategy="hlora", svd_method="randomized",
+                   rank_policy="spectrum", per_target_ranks=True))
+RESUME_SPLIT = 2
+RESUME_CKPT = os.path.join(ROOT, "build", "phase10", "resume")
+ROUND_LINE = re.compile(
+    r"^  round +(\d+): train_loss=([0-9.]+) eval_acc=([0-9.]+)$", re.M)
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def hold_saved_history(torch, store, hist, printed, ckpt, step, args):
+    """The driver's checkpoint and ``history.json`` against the history
+    ``main`` returned and the round lines it printed: read through the
+    port's store onto the card and onto the CPU, every numeric column a
+    float64 tensor of its values, ``health`` one a key, the meta's step and
+    arguments."""
+    lines = [(int(r), float(l), float(a))
+             for r, l, a in ROUND_LINE.findall(printed)]
+    want_lines = [(r, float(f"{l:.4f}"), float(f"{a:.4f}")) for r, (l, a) in
+                  enumerate(zip(hist["train_loss"], hist["eval_acc"]))]
+    if lines != want_lines:
+        raise AssertionError(f"(a) printed round lines {lines} != the "
+                             f"returned history's {want_lines}")
+    for dev in ("cuda", "cpu"):
+        tree, meta = store.restore(ckpt, device=dev)
+        cols = tree["history"]
+        if sorted(cols) != sorted(hist):
+            raise AssertionError(f"(a) saved columns {sorted(cols)}")
+        for col, values in hist.items():
+            pairs = ([(f"health/{k}", cols[col][k],
+                       [row[k] for row in values]) for k in values[0]]
+                     if col == "health" else [(col, cols[col], values)])
+            for name, got, want in pairs:
+                want = torch.tensor(want, dtype=torch.float64, device=dev)
+                if got.device.type != dev or not torch.equal(got, want):
+                    raise AssertionError(f"(a) saved {name} on {dev}: "
+                                         f"{got} != {want}")
+        if meta != {"step": step, "args": args}:
+            raise AssertionError(f"(a) saved meta {meta}")
+    with open(os.path.join(ckpt, "history.json")) as f:
+        if json.load(f) != json.loads(json.dumps(hist)):
+            raise AssertionError("(a) history.json differs from the history")
+
+
+def run_driver(torch, np) -> dict:
+    """(a) ``repro_torch.launch.train.main`` in process: it must take phase
+    9's cached backbone (no pretraining step runs) and launch exactly 48 of
+    each lora kernel a local step and 48 forward an eval, and nothing
+    else of ours; what it saved, read back, must equal what it returned
+    and printed. Returns its launches."""
+    import io
+    import shutil
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.fed import simulation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    shutil.rmtree(DRIVER_CKPT, ignore_errors=True)
+    argv = DRIVER_ARGS + ["--ckpt-dir", DRIVER_CKPT]
+    args = train.parse_args(argv)
+    grad_step, calls = simulation.pretrain_loss_and_grads, []
+    cached = len(simulation._PRETRAIN_STORE)
+
+    def counted(*a):
+        calls.append(1)
+        return grad_step(*a)
+
+    out = io.StringIO()
+    simulation.pretrain_loss_and_grads = counted
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            hist = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        simulation.pretrain_loss_and_grads = grad_step
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    for line in out.getvalue().splitlines():
+        log(f"  (a) | {line}")
+    per_step = 2 * get_config("roberta-large").num_layers   # q and v
+    steps = args.cohort * args.local_steps
+    want = dict({k: 0 for k in got},
+                lora_matmul=per_step * (steps + 1) * args.rounds,
+                lora_matmul_dx=per_step * steps * args.rounds,
+                lora_matmul_grad_ab=per_step * steps * args.rounds)
+    ok = (got == want and not calls
+          and len(simulation._PRETRAIN_STORE) == cached)
+    hold_history("(a) the driver", args.rounds, hist, t0)
+    log(f"  (a) train.main({' '.join(DRIVER_ARGS)}) in {wall:.3f} s: "
+        f"pretraining steps run {len(calls)} (phase 9's cached backbone); "
+        f"launches {got} (expect {per_step} of each lora kernel a local "
+        f"step, {steps} steps a round, and {per_step} forward an eval, "
+        f"{args.rounds} rounds) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) the driver: launches {got} != {want}, "
+                             f"pretraining steps {len(calls)}")
+    step = args.rounds
+    hold_saved_history(torch, store, hist, out.getvalue(), DRIVER_CKPT,
+                       step, vars(args))
+    arrays = os.path.join(DRIVER_CKPT, f"step_{step:08d}", "arrays.npz")
+    log(f"  (a) checkpoint step {step}: {_dir_bytes(DRIVER_CKPT)} bytes "
+        f"(arrays.npz {os.path.getsize(arrays)}, history.json "
+        f"{os.path.getsize(os.path.join(DRIVER_CKPT, 'history.json'))}); "
+        f"read back onto the card and the CPU, equal to the returned "
+        f"history and the printed lines ok")
+    return {k: v for k, v in got.items() if v}
+
+
+def _factor_bits_equal(torch, got, want) -> list:
+    """The leaves of two ``{target: {leaf: tensor}}`` (or head) trees whose
+    bits differ."""
+    bad = []
+    for t, v in want.items():
+        pairs = v.items() if isinstance(v, dict) else [(None, v)]
+        for leaf, w in pairs:
+            g = got[t] if leaf is None else got[t][leaf]
+            if not torch.equal(_bits(torch, g), _bits(torch, w)):
+                bad.append(t if leaf is None else f"{t}/{leaf}")
+    return bad
+
+
+def run_resume(torch, np) -> dict:
+    """(b) phase 8's hlora randomized run with the spectrum policy and
+    per-target ranks on phase 9's backbone: 3 rounds straight, against 2
+    rounds, ``save``, ``FedSession.restore`` into a fresh session, and 1
+    more, each run driven by ``round_scheduler`` so that every round gets
+    phase 8's checks (a)-(d) and (f). Integers (cohorts, ranks, ``target_ranks``, bytes, launches: 48
+    of each lora kernel a step, 48 forward an eval, recon_agg once a round)
+    must be equal; the losses, eval metrics and global factors and head
+    should have the same bits, and are otherwise held to phase 6's loss
+    limit and phase 7's update limit, saying so. Returns the launches over
+    the 6 rounds."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.fed import (FedSession, ServerConfig, SimConfig,
+                                 make_experiment_setup, simulation)
+
+    cfg = get_config("roberta-large")
+    label, rounds, kw = RESUME_RUN
+    scfg = ServerConfig(**ROUND_SERVER, **kw)
+    sim = SimConfig(rounds=rounds)
+    cached = len(simulation._PRETRAIN_STORE)
+    base = simulation.pretrain_backbone(cfg, SimConfig(), device="cuda")
+    if len(simulation._PRETRAIN_STORE) != cached:
+        raise AssertionError("(b) phase 9's backbone was not cached")
+    (session_kw, train, _, data_fn, _, eval_fn) = make_experiment_setup(
+        cfg, sim, scfg, base, device="cuda")
+    expect = round_expect(cfg, scfg)
+    shutil.rmtree(RESUME_CKPT, ignore_errors=True)
+
+    def fresh():
+        return FedSession(cfg, scfg, device="cuda", **session_kw)
+
+    def scheduler(part):
+        return round_scheduler(torch, np, f"{label}, {part}", expect,
+                               profile=False)
+
+    t0 = time.perf_counter()
+    straight, s_sched = fresh(), scheduler("straight")
+    h_full = s_sched.run(straight, train, data_fn, rounds, eval_fn=eval_fn)
+    t_straight = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, a_sched = fresh(), scheduler("first")
+    h_a = a_sched.run(first, train, data_fn, RESUME_SPLIT, eval_fn=eval_fn)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    path = first.save(RESUME_CKPT)
+    t2 = time.perf_counter()
+    resumed = FedSession.restore(RESUME_CKPT, cfg, scfg, device="cuda",
+                                 **session_kw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    b_sched = scheduler("resumed")
+    h_b = b_sched.run(resumed, train, data_fn, rounds - RESUME_SPLIT,
+                      eval_fn=eval_fn)
+    t_split = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(path, "arrays.npz"))
+    meta = os.path.getsize(os.path.join(path, "meta.json"))
+
+    logs = a_sched.rounds + b_sched.rounds
+    ints = ("cohort", "ranks", "post_ranks", "target_ranks", "launches")
+    same_ints = (len(logs) == len(s_sched.rounds) == rounds and all(
+        got[k] == want[k] for want, got in zip(s_sched.rounds, logs)
+        for k in ints))
+    for k in ("round", "downlink_bytes", "uplink_bytes"):
+        same_ints = same_ints and h_a[k] + h_b[k] == h_full[k]
+    floats = {k: (h_a[k] + h_b[k], h_full[k])
+              for k in ("train_loss", "eval_acc", "eval_loss")}
+    differ = [k for k, (g, w) in floats.items() if g != w]
+    differ += _factor_bits_equal(torch, resumed.global_lora,
+                                 straight.global_lora)
+    differ += [f"head {k}" for k in _factor_bits_equal(
+        torch, resumed.global_head, straight.global_head)]
+    log(f"  (b) {label}: {rounds} rounds straight in {t_straight:.3f} s; "
+        f"{RESUME_SPLIT} rounds, save ({(t2 - t1) * 1e3:.1f} ms, arrays.npz "
+        f"{size} bytes, meta.json {meta} bytes), restore "
+        f"({(t3 - t2) * 1e3:.1f} ms) and {rounds - RESUME_SPLIT} more in "
+        f"{t_split:.3f} s; cohorts, ranks, target_ranks, bytes and launches "
+        f"equal {'ok' if same_ints else 'FAIL'}; train loss "
+        f"{floats['train_loss'][0]}, eval acc {floats['eval_acc'][0]}, eval "
+        f"loss {floats['eval_loss'][0]}; bits equal to the straight run: "
+        + ("all (losses, eval metrics, global factors, head)" if not differ
+           else f"not for {differ}"))
+    if not same_ints:
+        raise AssertionError("(b) the resumed run's integers differ")
+    if differ:
+        # not bit for bit: the losses to phase 6's card-vs-CPU limit, the
+        # accuracy exactly, the global update normwise to phase 7's limit
+        worst = max(abs(a - b) for k in ("train_loss", "eval_loss")
+                    for a, b in zip(*floats[k]))
+        alpha, r_max = cfg.lora.alpha, cfg.lora.r_max
+        upd = max(rel_err(*(
+            ((alpha / r_max) * s.global_lora[t]["A"].double()
+             @ s.global_lora[t]["B"].double()).cpu()
+            for s in (resumed, straight))) for t in straight.global_lora)
+        ok = (worst <= TRAIN_LOSS_ATOL and upd <= AGG_UPD_REL
+              and floats["eval_acc"][0] == floats["eval_acc"][1])
+        log(f"  (b) held instead: losses |diff| max {worst:.3e} (<= "
+            f"{TRAIN_LOSS_ATOL:.0e}), global update rel err {upd:.3e} (<= "
+            f"{AGG_UPD_REL:.0e}), eval acc equal "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("(b) the resumed run differs")
+    launches = {}
+    for sched in (s_sched, a_sched, b_sched):
+        for k, v in sched.launches.items():
+            launches[k] = launches.get(k, 0) + v
+    return {k: v for k, v in launches.items() if v}
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2784,6 +3056,16 @@ def main() -> int:
     for name, n in run_pretraining(torch, np).items():
         launches[name] += n
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    log("[10] the training driver and checkpoint / resume: full-width "
+        "roberta-large")
+    t0 = time.perf_counter()
+    # a fourth counted path for the lora kernels and a third for recon_agg:
+    # the driver's rounds and the resumed run's
+    for name, n in run_driver(torch, np).items():
+        launches[name] += n
+    for name, n in run_resume(torch, np).items():
+        launches[name] += n
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

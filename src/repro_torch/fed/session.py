@@ -23,10 +23,16 @@ initial global adapter comes from a ``torch.Generator`` seeded with
 ``scfg.seed`` (the reference's from ``jax.random``): the same
 distributions, not the same numbers.
 
-Not ported yet: checkpoint/resume (``save``/``restore``), the async merge
-(``flush_async``, ``adapter_for``, ``AsyncConfig``), populations and
-samplers, wire codecs, the mesh and the recorder; passing any of them
-raises ``NotImplementedError``.
+* **Checkpoint / resume** (``save``, ``restore``): the global factors and
+  masks, the head and the ranks through ``repro_torch.checkpoint``, the
+  round counters, ``target_ranks``, the strategy's name, the rng's
+  bit-generator state and the comm log in its JSON meta; the reference's
+  keys, so each package restores what the other saved.
+
+Not ported yet: the async merge (``flush_async``, ``adapter_for``,
+``AsyncConfig``, and so the ``async`` state of a checkpoint, which
+``restore`` refuses), populations and samplers, wire codecs, the mesh and
+the recorder; passing any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import agg_engine
 from repro_torch.core import rank as rank_lib
@@ -45,7 +52,7 @@ from repro_torch.fed import messages as msg_lib
 from repro_torch.fed import strategies as strat_lib
 from repro_torch.fed.client import split_head
 from repro_torch.models import transformer as tf_lib
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import MetricsRegistry, percentile
 
 
 @dataclass
@@ -153,6 +160,9 @@ class FedSession:
         self.target_ranks: Optional[Dict[str, int]] = None
         self.rounds_done = 0
         self.version = 0
+        # staleness of every async merge; the sync round adds none, a
+        # restored checkpoint may carry the reference's
+        self.staleness_log: List[int] = []
         self.track_comm = track_comm
         # measured wire bytes, one entry per broadcast_cohort /
         # collect_updates call
@@ -443,8 +453,13 @@ class FedSession:
                 "dropped",
                 self.metrics.counter("fed.updates_dropped").value),
         }
-        # no async merges here: the staleness log stays empty
-        snap["staleness_p50"] = snap["staleness_p99"] = 0.0
+        new_stale = self.staleness_log[int(seen.get("stale_n", 0)):]
+        seen["stale_n"] = float(len(self.staleness_log))
+        if new_stale:
+            snap["staleness_p50"] = float(percentile(new_stale, 50))
+            snap["staleness_p99"] = float(percentile(new_stale, 99))
+        else:
+            snap["staleness_p50"] = snap["staleness_p99"] = 0.0
         anomalies = []
         if len(self.health_log) >= 3:
             for k in self._HEALTH_ANOMALY_KEYS:
@@ -460,3 +475,66 @@ class FedSession:
         snap["anomalies"] = float(len(anomalies))
         self.health_log.append(snap)
         return snap
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save(self, ckpt_dir: str, step: Optional[int] = None) -> str:
+        """Persist the global factors, masks, head and ranks through
+        ``repro_torch.checkpoint``; the round counters, ``target_ranks``,
+        the strategy's name, the rng's bit-generator state and the comm log
+        ride in the JSON meta, so a restored session replays the same
+        cohorts and draws. The default step is rounds_done + version, as in
+        the reference (sync rounds advance the one, async flushes the
+        other)."""
+        tree = {"global_lora": self.global_lora,
+                "global_head": self.global_head,
+                "ranks": np.asarray(self.ranks, np.int32)}
+        meta = {
+            "rounds_done": self.rounds_done,
+            "version": self.version,
+            "staleness_log": list(map(int, self.staleness_log)),
+            "target_ranks": self.target_ranks,
+            "strategy": self.strategy.name,
+            "rng_state": self.rng.bit_generator.state,
+            "comm_log": {k: list(map(int, v))
+                         for k, v in self.comm_log.items()},
+        }
+        return store.save(ckpt_dir, self.rounds_done + self.version
+                          if step is None else step, tree, meta)
+
+    @classmethod
+    def restore(cls, ckpt_dir: str, cfg: ModelConfig, scfg: ServerConfig,
+                base_params, step: Optional[int] = None,
+                **session_kwargs) -> "FedSession":
+        """Rebuild a session mid-run, every tensor on its ``device``. The
+        saved strategy's name is re-applied unless the caller passes an
+        explicit ``strategy``: a session saved under 'flora' must not
+        resume under ``scfg.strategy``'s math. ``last_spectrum`` is not
+        persisted, so the next ``adapt_ranks`` takes the split-normalized
+        factor-norm fallback of ``_target_spectra`` until the first
+        aggregation after the restore. A checkpoint taken inside a
+        ``BufferedAsync`` run (an ``async`` subtree) is refused: the async
+        merge is not ported."""
+        dev = resolve_device(session_kwargs.get("device"))
+        tree, meta = store.restore(ckpt_dir, step, device=dev)
+        if "async" in tree:
+            raise NotImplementedError(
+                "restoring a checkpoint with async state (a mid-flight "
+                "BufferedAsync run) is not ported yet")
+        if session_kwargs.get("strategy") is None and meta.get("strategy"):
+            session_kwargs["strategy"] = meta["strategy"]
+        sess = cls(cfg, scfg, base_params, **session_kwargs)
+        sess.global_lora = tree["global_lora"]
+        sess.global_head = tree.get("global_head", {})
+        sess.ranks = tree["ranks"].cpu().numpy().astype(np.int32)
+        sess.rounds_done = int(meta["rounds_done"])
+        sess.version = int(meta["version"])
+        sess.staleness_log = list(meta.get("staleness_log", []))
+        tr = meta.get("target_ranks")
+        sess.target_ranks = None if tr is None \
+            else {t: int(r) for t, r in tr.items()}
+        sess.rng.bit_generator.state = meta["rng_state"]
+        cl = meta.get("comm_log")
+        if cl:
+            sess.comm_log = {k: list(v) for k, v in cl.items()}
+        return sess

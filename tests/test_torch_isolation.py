@@ -74,7 +74,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "kernels/recon_agg.py", "core/svd.py", "core/aggregate.py",
                 "core/agg_engine.py", "core/seeds.py", "core/rank.py",
                 "fed/strategies.py", "fed/messages.py", "fed/session.py",
-                "fed/schedulers.py"):
+                "fed/schedulers.py", "util.py", "checkpoint/store.py",
+                "launch/train.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 
