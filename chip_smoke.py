@@ -25,10 +25,12 @@ Phases, each of which raises on failure:
    second call at the engine's shape, minitron-4b's GQA heads, 2048
    positions and every other variant built, each with its split plan and
    registers, the verify kernel also against the decode kernel at one
-   token per row; lora_matmul's forward and dx also at two ragged shapes
-   (one taking the kernels with element loads) and at M = 1 on Gemma-2B's
-   widths, each at the other split count and with an operand off 16-byte
-   alignment, with each plan and the kernels' registers, the same bits on
+   token per row; lora_matmul's forward, dx and dA/dB also at the LM
+   training path's shapes (M 1024 and 2048 through Gemma-2B's 2048 -> 2048
+   and 2048 -> 256 projections), at two ragged shapes (one taking the
+   kernels with element loads) and at M = 1 on Gemma-2B's widths, each
+   at the other split count and with an operand off 16-byte alignment,
+   with each plan and the kernels' registers, the same bits on
    a second call, and cuBLAS's base products timed beside them; its
    backward (dx, dA, dB; float32) through ``apply_lora`` against autograd
    through the plain version, and every other rank variant built (R 13,
@@ -108,7 +110,22 @@ Phases, each of which raises on failure:
    and the losses, eval metrics, global factors and head bit for bit
    (held otherwise to phase 6's loss and phase 7's update limits, naming
    what differs);
-11. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+11. next-token LM training on full-width Gemma-2B (``examples/
+   lm_pretrain_torch.py``'s ``train``: every parameter, the LoRA masks
+   included, AdamW with a cosine schedule, ``remat``, queries in chunks;
+   data from ``make_bigram_lm`` over a vocabulary of 4096, all 256000
+   logits kept): (a) one step at 2 layers on the card against the CPU:
+   loss, every leaf's gradient and change (phase 9 (a)'s limits), the
+   card's launches; (b) the example's loop at full depth (2.51 B
+   parameters), 100 steps of 16 x 64 tokens at lr 3e-3: every loss
+   finite, the last 10 at least 1 nat below the first, the chain's own
+   NLL beside them, exactly 144 lora forward launches a step (72 and 72
+   run again by ``remat``), 72 dx and 72 dA/dB, step time, tokens/s, peak
+   memory and 3 profiled steps with AdamW apart; (c) 2 x 1024 tokens
+   without and with ``remat`` (q_chunk 256) and at one chunk of 1024:
+   the same gradients (``REMAT_REL``, ``QCHUNK_REL``), 72 or 144
+   forwards, each variant's peak memory and time;
+12. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -720,16 +737,25 @@ def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
     return row
 
 
-# (label, M, K, N, R): the training and pretraining paths' shapes, two
-# ragged ones (the second with K and N not multiples of 4: the kernels
-# with element loads) and the merged-weight oracle's M = 1 on Gemma-2B's
-# widths. The first is the kernels line's; the first two are timed.
-TIMED_M = (512, 2048)
+# (label, M, K, N, R): the training, pretraining and LM training paths'
+# shapes, two ragged ones (the second with K and N not multiples of 4: the
+# kernels with element loads) and the merged-weight oracle's M = 1 on
+# Gemma-2B's widths. The first is the kernels line's; every shape whose M
+# is in TIMED_M is timed (dA/dB too, past the first).
+TIMED_M = (512, 1024, 2048)
 LORA_SHAPES = [
     ("training: 16 x 32 tokens through a q or v projection of "
      "RoBERTa-large", 512, 1024, 1024, 8),
     ("pretraining: 64 x 32 tokens through a q or v projection of "
      "RoBERTa-large", 2048, 1024, 1024, 8),
+    ("LM training: 16 x 64 tokens through a q or o projection of "
+     "Gemma-2B", 1024, 2048, 2048, 8),
+    ("LM training: 16 x 64 tokens through a k or v projection of "
+     "Gemma-2B", 1024, 2048, 256, 8),
+    ("LM training at length: 2 x 1024 tokens through a q or o projection "
+     "of Gemma-2B", 2048, 2048, 2048, 8),
+    ("LM training at length: 2 x 1024 tokens through a k or v projection "
+     "of Gemma-2B", 2048, 2048, 256, 8),
     ("ragged", 500, 1000, 1000, 6),
     ("ragged, element loads", 37, 999, 1001, 5),
     ("M = 1, Gemma-2B q and o (oracle)", 1, 2048, 2048, 8),
@@ -831,7 +857,7 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
     the other split count (one split where the plan splits, two where it
     does not), and with x and dy one element off 16-byte alignment
     (element loads); times at the training and pretraining paths' shapes
-    (``TIMED_M``; dA/dB also at M 2048) and at M = 1; dA/dB
+    (``TIMED_M``; dA/dB also at M 1024 and 2048) and at M = 1; dA/dB
     at every shape and at M = 4096 against the plain and split plain
     versions (``hold_grad_ab``); the backward through ``apply_lora``'s
     autograd Function against autograd through the plain version; then
@@ -1000,7 +1026,7 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                     f"{time_ms(lambda: dy @ w0.T):.4f}")
             hold_grad_ab(torch, ops, lora_mod, lib, x, xa_ref, dy, g_ref,
                          scale, why, off16)
-            if m == 2048:
+            if m in TIMED_M[1:]:
                 time_grad_ab(x, xa_ref, dy, g_ref)
     log("  the same bits on a second call: every case above")
 
@@ -2975,6 +3001,360 @@ def run_resume(torch, np) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: next-token LM training on full-width Gemma-2B
+# ---------------------------------------------------------------------------
+
+# The data's vocabulary: make_bigram_lm holds its chain as a (V, V) float64
+# table on the host, 524 GB at Gemma-2B's 256000; the model keeps all
+# 256000 logits, so the loss still spans the whole vocabulary.
+LM_DATA_VOCAB = 4096
+LM_EXAMPLE = os.path.join(ROOT, "examples", "lm_pretrain_torch.py")
+# (a) one train step at full width, depth cut to 2 layers so that the CPU
+# side is quick; held to phase 9 (a)'s limits (TRAIN_LOSS_ATOL, TRAIN_REL)
+LM_STEP = dict(layers=2, batch=4, seq=32, q_chunk=8, lr=3e-3)
+# (b) the example's loop at full width and depth (the reference example's
+# settings, its 200 steps cut to 100)
+LM_LOOP = dict(steps=100, batch=16, seq=64, lr=3e-3, q_chunk=64)
+LM_DROP_NATS = 1.0       # the last 10 losses' mean this far below the first
+LM_PROFILED = 3
+# (c) remat and q_chunk at length, from (b)'s trained weights: per-layer
+# recomputation runs the same operations on the same inputs again, so the
+# gradients are predicted bit for bit and held to REMAT_REL of each leaf's
+# norm; query chunks of 256 against one chunk of 1024 sum the same
+# products per score, in other GEMM shapes, held to QCHUNK_REL
+LM_LONG = dict(batch=2, seq=1024, q_chunk=256)
+REMAT_REL = 1e-6
+QCHUNK_REL = 1e-5
+ADAM_EPS = 1e-8          # adamw's default, which the example's train takes
+
+
+def _lm_example():
+    """``examples/lm_pretrain_torch.py`` as a module (``examples/`` is not
+    a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("lm_pretrain_torch",
+                                                  LM_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lm_expect(ops, layers: int, remat: bool) -> dict:
+    """Launches of one LM step: q, k, v and o in every layer, the forward
+    twice under remat (the backward runs each layer again)."""
+    per = 4 * layers
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect.update(lora_matmul=per * (2 if remat else 1),
+                  lora_matmul_dx=per, lora_matmul_grad_ab=per)
+    return expect
+
+
+def _norm_rel(torch, got, want) -> float:
+    """||got - want|| / ||want|| in float64, on want's device."""
+    want = want.double()
+    den = float(torch.linalg.vector_norm(want))
+    num = float(torch.linalg.vector_norm(got.to(want.device).double() - want))
+    return num / den if den else (0.0 if num == 0 else math.inf)
+
+
+def lm_step_against_cpu(torch, example, cfg_full) -> None:
+    """(a) one ``train`` step of the example on the card against the CPU
+    (plain versions): Gemma-2B's full width at 2 layers, the same weights
+    (seed 0 on the CPU, copied to the card) with live adapters (B small
+    and random, so that A's and the mask's gradients carry signal), the
+    same rows: the loss, every leaf's gradient, every leaf's change after
+    the step, and the card's launches."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.fed import simulation
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    t0 = time.perf_counter()
+    cfg = cfg_full.with_(num_layers=LM_STEP["layers"])
+    cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for ad in cpu.lora.values():
+        ad["B"] = 0.05 * torch.randn(ad["B"].shape, generator=gen)
+    data = make_bigram_lm(64, LM_STEP["seq"], LM_DATA_VOCAB, seed=0)
+    grad_step = simulation.pretrain_loss_and_grads
+    res = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = cpu if dev == "cpu" else cpu.to_device(dev)
+        seen = {}
+
+        def hooked(tree, batch, cfg_, **kw):
+            ops.reset_launches()
+            loss, grads = grad_step(tree, batch, cfg_, **kw)
+            seen.update(loss=float(loss), grads=_leaf_paths(grads),
+                        launches=dict(ops.LAUNCHES))
+            return loss, grads
+
+        before = _leaf_paths(params.tree())
+        simulation.pretrain_loss_and_grads = hooked
+        t1 = time.perf_counter()
+        try:
+            trained, losses = example.train(
+                cfg, params, data, steps=1, batch=LM_STEP["batch"],
+                lr=LM_STEP["lr"], remat=True, q_chunk=LM_STEP["q_chunk"],
+                device=dev)
+            torch.cuda.synchronize()
+        finally:
+            simulation.pretrain_loss_and_grads = grad_step
+        res[side] = dict(seen, secs=time.perf_counter() - t1, before=before,
+                         after=_leaf_paths(trained.tree()), loss=losses[0])
+        del params, trained
+    dl = abs(res["card"]["loss"] - res["cpu"]["loss"])
+    worst = dict(g=(0.0, ""), c=(0.0, ""), all=(0.0, ""))
+    skipped, wrong = {}, 0
+    for path, g_cpu in res["cpu"]["grads"].items():
+        name = "/".join(path)
+        g_card = res["card"]["grads"][path].cpu()
+        before = res["cpu"]["before"][path]
+        du_c = res["cpu"]["after"][path] - before
+        du_g = res["card"]["after"][path].cpu() - before
+        change = float(torch.linalg.vector_norm(du_c.double()))
+        if change == 0.0:
+            raise AssertionError(f"LM step: {path} did not move")
+        # AdamW's first step moves an element by lr g / (|g| + eps): about
+        # lr against g's sign, but in proportion to g where |g| is within a
+        # few eps of zero. There the elements' own gradient difference dg
+        # moves the update by about eps dg / (|g| + eps)^2 of lr, and where
+        # the two gradients differ in sign (|g| within dg of zero) by up to
+        # 2 lr. Such elements are counted and must each have moved against
+        # the card's own gradient (or not at all); the rest are held to the
+        # CPU side's change
+        dg = (g_card - g_cpu).abs()
+        skip = ((torch.sign(g_card) != torch.sign(g_cpu))
+                | (ADAM_EPS * dg / (g_cpu.abs() + ADAM_EPS) ** 2 > TRAIN_REL))
+        if bool(skip.any()):
+            skipped[name] = int(skip.sum())
+            wrong += int((du_g[skip] * g_card[skip] > 0).sum())
+        diff = (du_g - du_c).double()
+        for key, err in (
+                ("g", rel_err(g_card, g_cpu)),
+                ("c", float(torch.linalg.vector_norm(diff[~skip])) / change),
+                ("all", float(torch.linalg.vector_norm(diff)) / change)):
+            worst[key] = max(worst[key], (err, name))
+    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+    got = res["card"]["launches"]
+    ok = (dl <= TRAIN_LOSS_ATOL and worst["g"][0] <= TRAIN_REL
+          and worst["c"][0] <= TRAIN_REL and not wrong and got == expect)
+    log(f"  (a) one train step, {LM_STEP['batch']} x {LM_STEP['seq']} tokens,"
+        f" remat, q_chunk {LM_STEP['q_chunk']}, {cfg.num_layers} layers at "
+        f"full width ({cfg.param_count() / 1e6:.1f} M): loss card "
+        f"{res['card']['loss']:.6f} cpu {res['cpu']['loss']:.6f} (|diff| "
+        f"{dl:.2e} <= {TRAIN_LOSS_ATOL:.0e}); gradient rel err per leaf max "
+        f"{worst['g'][0]:.2e} ({worst['g'][1]}) over "
+        f"{len(res['cpu']['grads'])} leaves (<= {TRAIN_REL:.0e} of the "
+        f"norm); card launches {got} (expect {expect['lora_matmul']} "
+        f"forward, {expect['lora_matmul_dx']} dx, "
+        f"{expect['lora_matmul_grad_ab']} dA/dB); step card "
+        f"{res['card']['secs'] * 1e3:.1f} ms, cpu "
+        f"{res['cpu']['secs'] * 1e3:.0f} ms")
+    log(f"  (a) after the step: ||card - cpu|| / ||cpu change|| over every "
+        f"element max {worst['all'][0]:.2e} ({worst['all'][1]}; not held); "
+        f"elements whose update the gradients' own difference moves past "
+        f"{TRAIN_REL:.0e} of lr through AdamW's eps, or whose gradients "
+        f"differ in sign, by leaf {skipped or 'none'}, of which moved along "
+        f"the card's own gradient {wrong} (must be 0); over the other "
+        f"elements max {worst['c'][0]:.2e} ({worst['c'][1]}; <= "
+        f"{TRAIN_REL:.0e}); in {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"LM step: card and CPU disagree (loss {dl}, "
+                             f"{worst}, {wrong} moved the wrong way) or "
+                             f"launches {got} != {expect}")
+
+
+def lm_loop(torch, np, example, cfg) -> tuple:
+    """(b) the example's ``train`` at full width and depth: every step's
+    loss (finite), wall time between synchronizations and launches; the
+    drop over the run against the chain's own NLL; then 3 profiled steps
+    with AdamW's kernels apart. Returns (the trained weights, launches)."""
+    from repro_torch.data import bigram_nll, make_bigram_lm
+    from repro_torch.fed import simulation
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    data = make_bigram_lm(4096, LM_LOOP["seq"], LM_DATA_VOCAB, seed=0)
+    floor = bigram_nll(data, LM_DATA_VOCAB, seed=0)
+    grad_step = simulation.pretrain_loss_and_grads
+    steps = []
+
+    def hooked(tree, batch, cfg_, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.reset_launches()
+        loss, grads = grad_step(tree, batch, cfg_, **kw)
+        launches = dict(ops.LAUNCHES)
+        value = float(loss)
+        if not math.isfinite(value):
+            raise AssertionError(
+                f"LM step {len(steps)}: loss {value}; first non-finite leaf "
+                f"of the weights {_first_nonfinite(tree)}, of the gradients "
+                f"{_first_nonfinite(grads)}")
+        steps.append(dict(start=start, loss=value, launches=launches))
+        return loss, grads
+
+    kw = dict(steps=LM_LOOP["steps"], batch=LM_LOOP["batch"],
+              lr=LM_LOOP["lr"], remat=True, q_chunk=LM_LOOP["q_chunk"],
+              device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    simulation.pretrain_loss_and_grads = hooked
+    t0 = time.perf_counter()
+    try:
+        # the initial weights go in without a name here, so that train
+        # lets them go after the first step
+        trained, losses = example.train(
+            cfg, model_lib.init_params(cfg, seed=0, device="cuda"), data,
+            **kw)
+        torch.cuda.synchronize()
+    finally:
+        simulation.pretrain_loss_and_grads = grad_step
+    end = time.perf_counter()
+    wall = end - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+    bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
+    walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    walls.append(end - steps[-1]["start"])
+    tokens = kw["steps"] * kw["batch"] * LM_LOOP["seq"]
+    last = float(np.mean(losses[-10:]))
+    drop = losses[0] - last
+    shown = [(i, round(v, 4)) for i, v in enumerate(losses)
+             if i % 10 == 0 or i == len(losses) - 1]
+    ok = (not bad and len(steps) == kw["steps"] and drop >= LM_DROP_NATS
+          and [st["loss"] for st in steps] == losses)
+    log(f"  (b) the example's train: {len(steps)} steps of {kw['batch']} x "
+        f"{LM_LOOP['seq']} tokens, remat, q_chunk {kw['q_chunk']}, AdamW lr "
+        f"{kw['lr']} (cosine, {example.WARMUP_STEPS} warmup steps), every "
+        f"parameter ({cfg.param_count() / 1e9:.3f} B) in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tok/s; step p50 {np.median(walls) * 1e3:.3f} "
+        f"ms (min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; "
+        f"synchronized at each step); peak memory {peak:.2f} GiB")
+    log(f"  (b) losses (step, loss) {shown}; every loss finite; first "
+        f"{losses[0]:.4f}, mean of the last 10 {last:.4f}: down {drop:.4f} "
+        f"nats (>= {LM_DROP_NATS}); the chain's own NLL on the data "
+        f"{floor:.4f} (a perfect model's floor), ln {LM_DATA_VOCAB} = "
+        f"{math.log(LM_DATA_VOCAB):.4f}, ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}")
+    log(f"  (b) launches a step: {steps[0]['launches']} (expect "
+        f"{expect['lora_matmul']} forward: q, k, v and o in "
+        f"{cfg.num_layers} layers, run again by remat; "
+        f"{expect['lora_matmul_dx']} dx and {expect['lora_matmul_grad_ab']} "
+        f"dA/dB; no other kernel of ours) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"LM loop: launches differ at steps {bad[:5]}, {len(steps)} "
+            f"steps, or the loss fell {drop} < {LM_DROP_NATS} nats")
+    launches = {name: sum(st["launches"][name] for st in steps) for name in
+                ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+
+    # 3 more steps from the trained weights under the profiler; the
+    # example runs its update inside record_function("adamw")
+    def three_steps():
+        example.train(cfg, trained, data, **dict(kw, steps=LM_PROFILED))
+
+    events = profile_window(torch, f"{LM_PROFILED} LM steps", three_steps,
+                            group=train_group, annotation="adamw")
+    groups = group_ms(events, train_group, "adamw")
+    log("  (b) device ms a step: " + ", ".join(
+        f"{g} {v / LM_PROFILED:.3f}" for g, v in sorted(groups.items())))
+    return trained, launches
+
+
+def lm_long(torch, cfg, trained) -> dict:
+    """(c) one gradient step at batch 2 x 1024 from (b)'s trained weights:
+    without remat and with it (q_chunk 256), and with it at one chunk of
+    1024; each variant's loss, gradients, launches, peak memory and time
+    (after one unmeasured warm-up step). Returns the measured variants'
+    launches."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.fed import simulation
+    from repro_torch.kernels import ops
+
+    data = make_bigram_lm(LM_LONG["batch"], LM_LONG["seq"], LM_DATA_VOCAB,
+                          seed=1)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+    tree = trained.tree()
+    variants = (("no remat", False, LM_LONG["q_chunk"]),
+                ("remat", True, LM_LONG["q_chunk"]),
+                ("remat, one chunk", True, LM_LONG["seq"]))
+    simulation.pretrain_loss_and_grads(tree, batch, cfg, remat=True,
+                                       q_chunk=LM_LONG["q_chunk"])
+    gc.collect()
+    out, launches = {}, {}
+    for label, remat, q_chunk in variants:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = simulation.pretrain_loss_and_grads(
+            tree, batch, cfg, remat=remat, q_chunk=q_chunk)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = dict(ops.LAUNCHES)
+        expect = _lm_expect(ops, cfg.num_layers, remat)
+        log(f"  (c) {label} (q_chunk {q_chunk}), {LM_LONG['batch']} x "
+            f"{LM_LONG['seq']} tokens: loss {float(loss):.6f}; step "
+            f"{secs * 1e3:.1f} ms; peak {peak / 2**30:.2f} GiB, "
+            f"{(peak - resident) / 2**30:.2f} GiB above the "
+            f"{resident / 2**30:.2f} GiB resident; launches {got} "
+            f"{'ok' if got == expect else 'FAIL'}")
+        if got != expect:
+            raise AssertionError(f"(c) {label}: launches {got} != {expect}")
+        for name in ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab"):
+            launches[name] = launches.get(name, 0) + got[name]
+        out[label] = (float(loss), _leaf_paths(grads))
+        del loss, grads
+
+    def hold(label, ref, limit, why):
+        (la, ga), (lb, gb) = out[label], out[ref]
+        errs = {p: _norm_rel(torch, ga[p], gb[p]) for p in gb}
+        same = [p for p in gb if torch.equal(ga[p], gb[p])]
+        over = ["/".join(p) for p, e in errs.items() if e > limit]
+        dl = abs(la - lb) / abs(lb)
+        ok = not over and dl <= limit
+        differ = ["/".join(p) for p in gb if p not in same]
+        log(f"  (c) {label} against {ref}: loss rel diff {dl:.2e}; "
+            f"gradients bit for bit in {len(same)} of {len(gb)} leaves "
+            f"(not: {', '.join(differ[:6]) or 'none'}"
+            f"{', ...' if len(differ) > 6 else ''}), "
+            f"rel err max {max(errs.values()):.2e} (<= {limit:.0e} of the "
+            f"norm: {why}); leaves over the limit {over or 'none'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(c) {label} against {ref}: loss {dl}, "
+                                 f"leaves {over}")
+
+    hold("remat", "no remat", REMAT_REL, "the same operations run again")
+    hold("remat, one chunk", "remat", QCHUNK_REL,
+         "the same products per score in other GEMM shapes")
+    return launches
+
+
+def run_lm_training(torch, np) -> dict:
+    """Phase 11. Returns the lora kernels' launches over (b)'s steps and
+    (c)'s measured variants."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma-2b")
+    example = _lm_example()
+    lm_step_against_cpu(torch, example, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained, launches = lm_loop(torch, np, example, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in lm_long(torch, cfg, trained).items():
+        launches[name] += n
+    return launches
+
+
 
 def main() -> int:
     import numpy as np
@@ -3066,6 +3446,18 @@ def main() -> int:
     for name, n in run_resume(torch, np).items():
         launches[name] += n
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    from repro_torch.fed import simulation
+    simulation._PRETRAIN_STORE.clear()       # phase 9's backbone
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log("[11] next-token LM training: full-width gemma-2b")
+    t0 = time.perf_counter()
+    # a fifth counted path for the lora kernels: the LM loop's steps and
+    # the steps at length
+    for name, n in run_lm_training(torch, np).items():
+        launches[name] += n
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

@@ -1,5 +1,6 @@
 from repro_torch.data.partition import client_batches, dirichlet_partition
-from repro_torch.data.synthetic import TASKS, make_pair_classification
+from repro_torch.data.synthetic import (TASKS, bigram_nll, make_bigram_lm,
+                                        make_pair_classification)
 
-__all__ = ["TASKS", "make_pair_classification", "dirichlet_partition",
-           "client_batches"]
+__all__ = ["TASKS", "make_pair_classification", "make_bigram_lm",
+           "bigram_nll", "dirichlet_partition", "client_batches"]

@@ -1,14 +1,15 @@
-"""Synthetic sentence-pair classification data (a numpy-only copy of the
-classification part of ``repro/data/synthetic.py``; the same seeds give
-the same arrays bit for bit).
+"""Synthetic datasets (a numpy-only copy of ``repro/data/synthetic.py``;
+the same seeds give the same arrays bit for bit).
 
 MRPC / QQP / RTE stand-ins: a pair is positive when the second segment is
 a shuffled, noised copy of the first, negative when drawn independently.
+LM data comes from a random bigram chain, so next-token prediction has
+learnable structure.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -59,3 +60,38 @@ def make_pair_classification(
     tokens[:, 1 + seg] = SEP
     tokens[:, 2 + seg:2 + 2 * seg] = s2
     return tokens, labels
+
+
+def _chain_logits(rng: np.random.Generator, vocab_size: int,
+                  temp: float) -> np.ndarray:
+    """The bigram chain's (V, V) logits: the first draw of its seed."""
+    return rng.normal(size=(vocab_size, vocab_size)) / temp
+
+
+def make_bigram_lm(
+    n: int, seq_len: int, vocab_size: int, seed: int = 0, temp: float = 1.0
+) -> Dict[str, np.ndarray]:
+    """Sequences from a fixed random bigram chain; labels = next token."""
+    rng = np.random.default_rng(seed)
+    logits = _chain_logits(rng, vocab_size, temp)
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    cum = np.cumsum(probs, axis=1)
+    toks = np.empty((n, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab_size, size=n)
+    for t in range(seq_len):
+        u = rng.random(n)
+        toks[:, t + 1] = (cum[toks[:, t]] < u[:, None]).sum(1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32)}
+
+
+def bigram_nll(data: Dict[str, np.ndarray], vocab_size: int, seed: int = 0,
+               temp: float = 1.0) -> float:
+    """The chain's own mean NLL (nats) of ``data``'s labels given their
+    tokens, for data from ``make_bigram_lm`` with the same ``vocab_size``,
+    ``seed`` and ``temp``: the loss of a model that has learned the chain
+    exactly, the floor of next-token training on it."""
+    logits = _chain_logits(np.random.default_rng(seed), vocab_size, temp)
+    z = logits - logits.max(1, keepdims=True)
+    logp = z - np.log(np.exp(z).sum(1, keepdims=True))
+    return float(-logp[data["tokens"], data["labels"]].mean())

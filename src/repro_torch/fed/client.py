@@ -63,24 +63,28 @@ def _to(tree, dev: torch.device):
 
 
 def loss_and_grads(frozen: Transformer, trainable: Trainable, masks: Masks,
-                   batch: Dict[str, torch.Tensor], cfg: ModelConfig
+                   batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+                   remat: bool = False, q_chunk: int = 1024
                    ) -> Tuple[torch.Tensor, Trainable]:
     """(loss, d loss / d trainable) for one minibatch, both detached."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
     loss, _ = model_lib.loss_fn(client_params(frozen, leaves, masks), batch,
-                                cfg)
+                                cfg, remat=remat, q_chunk=q_chunk)
     grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
 
 
-def make_local_train(cfg: ModelConfig, opt: Optimizer, device=None,
+def make_local_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
+                     q_chunk: int = 1024, device=None,
                      metrics: Optional[MetricsRegistry] = None):
     """Returns local_train(frozen, trainable, masks, data) -> (trainable',
     mean_loss) with trainable = {"factors", "head"} and ``data`` leaves
-    (steps, batch, ...), numpy or tensors. Runs on ``device`` (None =
-    CUDA, which must exist); ``frozen`` must already live there. With
-    ``metrics``, every step is timed to completion (a device synchronise)
-    into ``train.step_s`` and its loss read into ``train.loss``."""
+    (steps, batch, ...), numpy or tensors; ``remat`` and ``q_chunk`` go to
+    ``loss_fn`` (off and 1024, the reference's trainer defaults). Runs on
+    ``device`` (None = CUDA, which must exist); ``frozen`` must already
+    live there. With ``metrics``, every step is timed to completion (a
+    device synchronise) into ``train.step_s`` and its loss read into
+    ``train.loss``."""
     dev = resolve_device(device)
 
     def local_train(frozen, trainable, masks, data):
@@ -94,7 +98,8 @@ def make_local_train(cfg: ModelConfig, opt: Optimizer, device=None,
         for step in range(data["tokens"].shape[0]):
             t0 = time.perf_counter()
             batch = {k: v[step] for k, v in data.items()}
-            loss, grads = loss_and_grads(frozen, trainable, masks, batch, cfg)
+            loss, grads = loss_and_grads(frozen, trainable, masks, batch, cfg,
+                                         remat=remat, q_chunk=q_chunk)
             with torch.no_grad():
                 updates, state = opt.update(grads, state, trainable)
                 trainable = apply_updates(trainable, updates)
@@ -110,13 +115,14 @@ def make_local_train(cfg: ModelConfig, opt: Optimizer, device=None,
     return local_train
 
 
-def make_cohort_train(cfg: ModelConfig, opt: Optimizer, device=None,
+def make_cohort_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
+                      q_chunk: int = 1024, device=None,
                       metrics: Optional[MetricsRegistry] = None):
     """The local trainer over a client cohort: cohort_train(frozen,
     trainable, masks, data) -> (trainable', mean losses (C,)), where
     trainable, masks and data carry a leading cohort axis and the frozen
     base is shared. Clients run one after another (the reference vmaps)."""
-    local = make_local_train(cfg, opt, device, metrics)
+    local = make_local_train(cfg, opt, remat, q_chunk, device, metrics)
 
     def cohort_train(frozen, trainable, masks, data):
         cohort = tree_leaves(masks)[0].shape[0]
@@ -139,5 +145,6 @@ def evaluate(params: Transformer, batch, cfg: ModelConfig, device=None
     """{"loss", "acc"} of ``params`` (head and adapters in place) on one
     batch, on ``device`` (None = CUDA)."""
     dev = resolve_device(device)
-    _, metrics = model_lib.loss_fn(params, _to(dict(batch), dev), cfg)
+    _, metrics = model_lib.loss_fn(params, _to(dict(batch), dev), cfg,
+                                   remat=False)
     return metrics

@@ -94,17 +94,22 @@ def pretrain_batches(cfg: ModelConfig, sim: SimConfig):
 
 
 def pretrain_loss_and_grads(tree: Dict, batch: Dict[str, torch.Tensor],
-                            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                            cfg: ModelConfig, remat: bool = False,
+                            q_chunk: int = 1024
+                            ) -> Tuple[torch.Tensor, Dict]:
     """(loss, d loss / d every tensor) for one minibatch of a weight tree
     in ``Transformer.tree()``'s layout, the gradients in the same layout
-    (the mask included), both detached. ``tree`` is not touched: the
-    gradient is taken in a module built from its tensors whose own
-    Parameters, adapters and head require grad."""
+    (the mask included), both detached; ``remat`` and ``q_chunk`` go to
+    ``loss_fn`` (off, as in the reference's pretraining step; LM training
+    turns it on). ``tree`` is not touched: the gradient is taken in a
+    module built from its tensors whose own Parameters, adapters and head
+    require grad."""
     live = Transformer.from_tree(cfg, tree_map(lambda t: t.detach(), tree))
     leaves = live.tree()
     for t in tree_leaves(leaves):
         t.requires_grad_(True)
-    loss, _ = model_lib.loss_fn(live, batch, cfg)
+    loss, _ = model_lib.loss_fn(live, batch, cfg, remat=remat,
+                                q_chunk=q_chunk)
     grads = iter(torch.autograd.grad(loss, tree_leaves(leaves)))
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
 

@@ -81,12 +81,15 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset=0, kv_positions: Optional[torch.Tensor] = None,
-              kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_valid: Optional[torch.Tensor] = None,
+              q_chunk: int = 1024) -> torch.Tensor:
     """Masked softmax attention. q: (B, Sq, H, Dh), k/v: (B, Skv, Hkv, Dh);
     ``q_offset`` is the absolute position of q[0]; ``kv_positions`` (B, Skv)
     the keys' absolute positions (default 0..Skv-1); ``kv_valid`` (B, Skv)
-    an extra validity mask. The reference evaluates it in query chunks;
-    one chunk gives the same values."""
+    an extra validity mask. Queries are attended in chunks of ``q_chunk``
+    (the largest divisor of Sq that fits, as in the reference), each at its
+    absolute positions, so the scores take O(chunk · Skv) memory at once;
+    the chunking changes no value."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     k = _repeat_kv(k, h // hkv)
@@ -97,19 +100,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_pos = torch.arange(skv, device=q.device)[None, :].expand(b, skv)
     else:
         kv_pos = kv_positions
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    logits = torch.einsum("bchd,bshd->bhcs", q.float(), k.float()) * scale
-    mask = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos[:, None, :] <= qpos[None, :, None]
-    if window is not None:
-        mask &= kv_pos[:, None, :] > (qpos[None, :, None] - window)
-    if kv_valid is not None:
-        mask &= kv_valid[:, None, :]
-    logits = torch.where(mask[:, None, :, :], logits,
-                         torch.full_like(logits, NEG_INF))
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhcs,bshd->bchd", p.to(v.dtype), v)
+
+    def attend_chunk(qc: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        # qc: (B, C, H, Dh); qpos: (C,) absolute positions
+        logits = torch.einsum("bchd,bshd->bhcs", qc.float(), k.float()) * scale
+        mask = torch.ones((b, qc.shape[1], skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kv_pos[:, None, :] <= qpos[None, :, None]
+        if window is not None:
+            mask &= kv_pos[:, None, :] > (qpos[None, :, None] - window)
+        if kv_valid is not None:
+            mask &= kv_valid[:, None, :]
+        logits = torch.where(mask[:, None, :, :], logits,
+                             torch.full_like(logits, NEG_INF))
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhcs,bshd->bchd", p.to(v.dtype), v)
+
+    pos = torch.arange(sq, device=q.device)
+    if sq <= q_chunk:
+        return attend_chunk(q, q_offset + pos)
+    if sq % q_chunk:  # the largest divisor of sq that fits
+        q_chunk = max(c for c in range(1, q_chunk + 1) if sq % c == 0)
+    return torch.cat([attend_chunk(q[:, i:i + q_chunk],
+                                   q_offset + pos[i:i + q_chunk])
+                      for i in range(0, sq, q_chunk)], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -240,23 +241,29 @@ def unbind_layers(tree: Dict, num_layers: int) -> List[Dict]:
 
 
 def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
-                  *, causal: bool, positions: torch.Tensor) -> torch.Tensor:
+                  *, causal: bool, positions: torch.Tensor,
+                  q_chunk: int = 1024) -> torch.Tensor:
     """Pre-norm block over a whole sequence. x: (B, S, d)."""
     q, k, v = qkv_proj(norm(x, lp["ln1"]), lp["attn"], cfg, ad)
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                  q_chunk=q_chunk)
     x = x + out_proj(o, lp["attn"], cfg, ad)
     return x + mlp(norm(x, lp["ln2"]), lp["mlp"], cfg, ad)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: bool = True, q_chunk: int = 1024,
             causal: bool = True) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V), or (B, C) for a classifier
     (CLS pooling: the final norm of position 0). Differentiable in
     every tensor of ``params`` that requires grad; attention is the plain
-    masked softmax, as in the reference's training path."""
+    masked softmax in query chunks of ``q_chunk``, as in the reference's
+    training path. With ``remat`` (the reference's ``jax.checkpoint`` per
+    layer) a layer keeps only its input for the backward, which runs the
+    layer again; it changes memory and time, never values."""
     b, s = tokens.shape
     x = params.embed[tokens.long()]                          # (B, S, d)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -264,11 +271,21 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         # content scaled up so absolute positions don't swamp it
         x = x * math.sqrt(cfg.d_model) + sinusoidal_positions(
             positions, cfg.d_model).to(x.dtype)
+
+    def layer(x, lp, ad):
+        return layer_forward(x, lp, ad, cfg, causal=causal,
+                             positions=positions, q_chunk=q_chunk)
+
     stacked = {g: params.layers[g].as_dict() for g in Transformer.GROUPS}
     for lp, ad in zip(unbind_layers(stacked, cfg.num_layers),
                       unbind_layers(params.lora, cfg.num_layers)):
-        x = layer_forward(x, lp, ad, cfg, causal=causal,
-                          positions=positions)
+        if remat and torch.is_grad_enabled():
+            # non-reentrant: the reentrant form does not support
+            # torch.autograd.grad, which the trainers take
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp, ad,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x, lp, ad)
     x = norm(x, params.final_norm.as_dict())
     if cfg.num_classes:
         return x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"]

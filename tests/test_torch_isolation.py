@@ -1,8 +1,10 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``, and the
-port's entry points refuse to run on a missing GPU unless the caller asks
-for the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's example ``examples/lm_pretrain_torch.py`` import neither JAX nor
+anything of the reference package ``repro``, and the port's entry points
+refuse to run on a missing GPU unless the caller asks for the CPU."""
 import ast
+import importlib.util
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -14,6 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = [ROOT / "examples" / "lm_pretrain_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -51,7 +54,8 @@ def _imports(path: Path):
 
 
 def test_no_port_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + EXAMPLES)
     assert len(files) >= 20
     found = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
              for p in files for line, mod in _imports(p)
@@ -120,6 +124,58 @@ def test_training_entry_points_refuse_a_missing_gpu_without_device_cpu():
         evaluate(params, batch, cfg)
     assert set(evaluate(params, batch, cfg, device="cpu")) == {"loss", "acc"}
     make_local_train(cfg, adamw(1e-3), device="cpu")    # asked for: fine
+
+
+def test_lm_example_refuses_a_missing_gpu_without_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately means it")
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.models import model
+    spec = importlib.util.spec_from_file_location("lm_pretrain_torch",
+                                                  EXAMPLES[0])
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = get_reduced("gemma-2b")
+    params = model.init_params(cfg, device="cpu")
+    data = make_bigram_lm(8, 6, cfg.vocab_size)
+    kw = dict(steps=1, batch=2, lr=1e-3, remat=True, q_chunk=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.train(cfg, params, data, device=None, **kw)
+    _, losses = example.train(cfg, params, data, device="cpu", **kw)
+    assert len(losses) == 1                              # asked for: fine
+
+
+def test_federated_trainers_default_to_no_remat_as_the_reference_does():
+    """The reference's ``loss_fn`` recomputes each layer by default and its
+    federated trainers turn that off; the port's pass the same defaults on
+    (otherwise every step would launch the lora forward kernels twice)."""
+    from repro.fed import client as j_client
+    from repro.fed import simulation as j_sim
+    from repro.models import model as j_model
+    from repro_torch.fed import client, simulation
+    from repro_torch.models import model
+
+    def defaults(fn):
+        params = inspect.signature(fn).parameters
+        return {k: p.default for k, p in params.items()
+                if k in ("remat", "q_chunk")}
+
+    for fn in (client.make_local_train, client.make_cohort_train,
+               client.loss_and_grads, simulation.pretrain_loss_and_grads):
+        assert defaults(fn) == {"remat": False, "q_chunk": 1024}, fn
+    for fn, ref in ((client.make_local_train, j_client.make_local_train),
+                    (client.make_cohort_train, j_client.make_cohort_train)):
+        assert defaults(fn) == defaults(ref)
+        assert list(inspect.signature(fn).parameters)[:4] == list(
+            inspect.signature(ref).parameters)[:4]
+    for fn, ref in ((model.loss_fn, j_model.loss_fn),
+                    (model.forward, j_model.forward)):
+        assert defaults(fn) == defaults(ref) == {"remat": True,
+                                                 "q_chunk": 1024}
+    assert "remat=False" in inspect.getsource(j_sim.pretrain_backbone)
 
 
 def test_round_entry_points_refuse_a_missing_gpu_without_device_cpu():
