@@ -41,13 +41,23 @@ Phases, each of which raises on failure:
 4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
-   the merged-weight oracle; then one more wave under ``torch.profiler``
-   for the device-busy share of wall time, device time by kernel, and the
-   flash kernels' device time per prefill chunk;
+   the merged-weight oracle; the same 8 requests again through an engine
+   with ``Recorder(annotate=True)``, a registry and two SLO classes: tokens
+   and launches equal to the unrecorded wave's, TTFT, per-request tok/s,
+   attainment, the events exported (Chrome trace, validated; JSONL, read
+   back equal) and folded into series, SLOs and the HTML report under
+   ``build/obs/``; four more waves, recorded, unrecorded, unrecorded,
+   recorded, for the decode step recorded against unrecorded, and the
+   recorder's own host time a step; then one more
+   wave on that engine under ``torch.profiler`` for the device-busy share
+   of wall time, device time by kernel, the flash kernels' device time per
+   prefill chunk, and one ``serve.decode_step`` range a decode step;
 5. speculative decode: the same 8 requests through ``ServeEngine(drafter=,
    spec_k=4)`` on phase 4's weights and registry, in four waves (scripted
    forced-accept and forced-reject, n-gram, self-draft), each wave's tokens
-   equal to phase 4's plain tokens and the verify kernel launched;
+   equal to phase 4's plain tokens and the verify kernel launched, each
+   engine recording into phase 4's recorder under its own name (a
+   ``verify_step`` span a dispatch, the self drafter's ``draft`` spans);
 6. client training on full-width RoBERTa-large (float32, random weights
    from a seed, LoRA on q and v): (a) one step of four clients (ranks
    2/4/6/8) on the card against the same step on the CPU (plain versions):
@@ -83,7 +93,11 @@ Phases, each of which raises on failure:
    recon_agg once a randomized round); (e) finite losses and eval
    metrics; (f) the adapted ranks against the energy rule recomputed from
    the spectrum; each round's time split into broadcast, train, collect,
-   aggregate and eval, one profiled round, peak memory;
+   aggregate and eval, one profiled round, peak memory; then the first
+   run's first round again through ``FedSession(recorder=)``: the same
+   cohort, ranks, bytes, losses and launches, the server's spans in order,
+   the wire samples summing to the comm log, ``fed.round_s`` beside the
+   synchronized timers;
 9. backbone pretraining on full-width RoBERTa-large (every parameter, the
    LoRA masks included): (a) one step of 8 rows on the card against the
    CPU: loss, every leaf's gradient, every leaf's change after one AdamW
@@ -1211,6 +1225,174 @@ def first_difference_ok(got, want, oracle, gaps) -> str:
     return msg
 
 
+# Phase 4's recorded wave: two SLO classes of TTFT targets (s), alternating
+# over the 8 requests. Observed, not gated: a closed batch of 8 prefills
+# before any decode is no arrival process.
+SERVE_SLO_TTFT_S = {"interactive": 0.25, "batch": 2.0}
+OBS_DIR = os.path.join(ROOT, "build", "obs")
+
+
+def timed_steps(engine) -> list:
+    """Time each ``engine.step_batch`` call on the host clock from outside
+    the engine (a step ends with its tokens copied to the host, so the time
+    holds its device work). Returns the list it fills with (seconds, prefill
+    chunks run in the step); decode-only steps have 0 chunks."""
+    rows = []
+    step = engine.step_batch
+
+    def timed():
+        c0 = engine.prefill_calls
+        t0 = time.perf_counter()
+        step()
+        rows.append((time.perf_counter() - t0, engine.prefill_calls - c0))
+
+    engine.step_batch = timed
+    return rows
+
+
+def decode_p50_ms(np, rows) -> float:
+    return float(np.median([dt for dt, c in rows if c == 0])) * 1e3
+
+
+def export_events(rec, label) -> dict:
+    """Write ``rec``'s events under ``build/obs/`` as a Chrome trace and as
+    JSONL; the trace must validate (read back from the file) and the JSONL
+    read back equal to ``rec.events()``. Returns the trace's counts."""
+    from repro_torch.obs import (read_jsonl_with_meta, validate_chrome_trace,
+                                 write_chrome_trace, write_jsonl)
+    events = rec.events()
+    trace = os.path.join(OBS_DIR, f"{label}.trace.json")
+    jsonl = os.path.join(OBS_DIR, f"{label}.events.jsonl")
+    write_chrome_trace(events, trace, process_name=f"chip_smoke {label}",
+                       dropped=rec.dropped)
+    with open(trace) as f:
+        counts = validate_chrome_trace(json.load(f))
+    n = write_jsonl(events, jsonl, meta={"dropped": rec.dropped})
+    back, meta = read_jsonl_with_meta(jsonl)
+    if n != len(events) or back != events or meta != {"dropped":
+                                                      rec.dropped}:
+        raise AssertionError(f"{jsonl} does not read back as the recorder's "
+                             f"{len(events)} events")
+    log(f"  {label}: {len(events)} events ({rec.dropped} dropped) -> "
+        f"{os.path.relpath(trace, ROOT)} (valid: {counts['X']} spans, "
+        f"{counts['i']} instants, {counts['C']} samples) and "
+        f"{os.path.relpath(jsonl, ROOT)} (reads back equal)")
+    return counts
+
+
+def run_recorded_wave(torch, np, ops, params, cfg, registry, prompts,
+                      adapters, kw, steps, plain, plain_rows) -> tuple:
+    """Phase 4's recorded wave: the same 8 requests through an engine with
+    ``Recorder(annotate=True)``, a registry and two SLO classes. Its tokens
+    and launches must equal the unrecorded wave's; the events are exported
+    and folded into a time-series store, an SLO monitor and the HTML report
+    under ``build/obs/``. Returns (engine, recorder)."""
+    from repro_torch.obs import (MetricsRegistry, Objective, Recorder,
+                                 SeriesStore, SLOMonitor, snapshot_text,
+                                 write_html)
+    from repro_torch.serve import ServeEngine
+
+    rec = Recorder(annotate=True)
+    engine = ServeEngine(params, cfg, registry, recorder=rec,
+                         metrics=MetricsRegistry(),
+                         slo_ttft_s=SERVE_SLO_TTFT_S, device="cuda", **kw)
+    classes = list(SERVE_SLO_TTFT_S)
+    uids = [engine.submit(prompts[i], adapters[i], max_new_tokens=steps,
+                          slo_class=classes[i % len(classes)])
+            for i in range(8)]
+    rows = timed_steps(engine)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches != plain["launches"]:
+        raise AssertionError(f"recorded wave: launches {launches} != the "
+                             f"unrecorded wave's {plain['launches']}")
+    same = sum(bool(np.array_equal(outs[u], t))
+               for u, t in zip(uids, plain["tokens"]))
+    if same != 8 or engine.steps != plain["steps"]:
+        raise AssertionError(f"recorded wave: {same}/8 requests equal the "
+                             f"unrecorded wave's tokens, {engine.steps} "
+                             f"steps against {plain['steps']}")
+    m = engine.metrics
+    ttft, tok_s = m.histogram("serve.ttft_s"), \
+        m.histogram("serve.request_tok_s")
+    dec, pre = m.histogram("serve.decode_step_s"), \
+        m.histogram("serve.prefill_row_s")
+    if ttft.count != 8 or m.histogram("serve.request_s").count != 8:
+        raise AssertionError(f"recorded wave: {ttft.count} TTFTs and "
+                             f"{m.histogram('serve.request_s').count} "
+                             f"request times for 8 requests")
+    if dec.count != engine.steps:
+        raise AssertionError(f"{dec.count} decode step spans for "
+                             f"{engine.steps} steps")
+    log(f"  recorded wave (Recorder(annotate=True), SLO classes "
+        f"{SERVE_SLO_TTFT_S} s): tokens equal to the unrecorded wave's 8/8, "
+        f"launches equal; {8 * steps / wall:.1f} tok/s ({wall:.3f} s); TTFT "
+        f"p50 {ttft.percentile(50) * 1e3:.3f} ms, p99 "
+        f"{ttft.percentile(99) * 1e3:.3f} ms; per-request tok/s p50 "
+        f"{tok_s.percentile(50):.2f} (min {tok_s.vmin:.2f}, max "
+        f"{tok_s.vmax:.2f}); TTFT attainment {engine.slo_attainment()}; "
+        f"prefill {pre.total / max(pre.count, 1) * 1e3:.3f} ms a row over "
+        f"{pre.count} rows")
+    log(f"  decode step p50: recorded span {dec.percentile(50) * 1e3:.3f} "
+        f"ms (n={dec.count}); step_batch timed from outside, decode-only "
+        f"steps: recorded {decode_p50_ms(np, rows):.3f} ms, unrecorded "
+        f"{decode_p50_ms(np, plain_rows):.3f} ms")
+    export_events(rec, "phase4")
+    events = rec.events()
+    store = SeriesStore(bucket_s=0.25)
+    n_obs = store.fold(events)
+    monitor = SLOMonitor(
+        [Objective("ttft_interactive", "first_token.ttft_s",
+                   SERVE_SLO_TTFT_S["interactive"], target=0.9),
+         Objective("decode_step", "span.decode_step", 0.1, target=0.99)],
+        recorder=rec, bucket_s=0.25, window_buckets=400)
+    monitor.fold(events)
+    report = write_html(os.path.join(OBS_DIR, "phase4.report.html"),
+                        title="chip_smoke phase 4: recorded wave",
+                        store=store, slo=monitor, metrics=m,
+                        dropped=rec.dropped)
+    log(f"  folded {n_obs} observations into {len(store.names())} series; "
+        f"report -> {os.path.relpath(report, ROOT)}")
+    for line in snapshot_text(slo=monitor).splitlines():
+        log(f"    {line}")
+    return engine, rec
+
+
+RECORD_REPS = 20000
+
+
+def recording_cost_us(recorded: bool) -> float:
+    """Host microseconds of a decode step's recording calls, from a
+    synthetic loop, not from the engine: the loop repeats, ``RECORD_REPS``
+    times, a copy of what ``ServeEngine.step``'s decode step does for the
+    recorder (two clock reads, the annotation, the span and the histogram;
+    keep it in step with ``serve/engine.py``). Recorded: a fresh
+    ``Recorder(annotate=True)`` and histogram; unrecorded,
+    ``NULL_RECORDER`` (the ``if rec.enabled:`` guards and the shared null
+    annotation). Recording does no device work, so this is its whole cost
+    a step. The step times cannot resolve it: the host's spread between
+    waves is far larger."""
+    from repro_torch.obs import NULL_RECORDER, MetricsRegistry, Recorder
+    rec = Recorder(capacity=RECORD_REPS, annotate=True) if recorded \
+        else NULL_RECORDER
+    hist = MetricsRegistry().histogram("serve.decode_step_s")
+    t0 = time.perf_counter()
+    for _ in range(RECORD_REPS):
+        ts = rec.now() if rec.enabled else 0.0
+        with rec.annotation("serve.decode_step"):
+            pass
+        if rec.enabled:
+            t1 = rec.now()
+            rec.complete("decode_step", "serve/engine", ts, t1, batch=8)
+            hist.observe(t1 - ts)
+    return (time.perf_counter() - t0) / RECORD_REPS * 1e6
+
+
 def run_engine(torch, np) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1246,12 +1428,12 @@ def run_engine(torch, np) -> dict:
     # warm-up wave (cuBLAS handles, allocator): not counted
     engine.submit(prompts[0][:chunk + 3], "client0", max_new_tokens=3)
     engine.run()
-    for h in ("decode_step_s", "prefill_row_s"):
-        engine.metrics.histogram(f"serve.{h}").reset()
     calls0, steps0 = engine.prefill_calls, engine.steps
 
     uids = [engine.submit(prompts[i], f"client{i % len(ranks)}",
                           max_new_tokens=steps) for i in range(8)]
+    # unrecorded: the engine reads no clock, so its steps are timed here
+    plain_rows = timed_steps(engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1280,15 +1462,15 @@ def run_engine(torch, np) -> dict:
                                  f"path")
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != {expect}")
-    dec = engine.metrics.histogram("serve.decode_step_s")
-    pre = engine.metrics.histogram("serve.prefill_row_s")
     tok_s = 8 * steps / wall
+    prefill_s = sum(dt for dt, c in plain_rows if c)
     log(f"  served 8 requests x {steps} tokens (prompts {lens.tolist()}) in "
         f"{wall:.3f} s: {tok_s:.1f} tok/s; decode step p50 "
-        f"{dec.percentile(50) * 1e3:.3f} ms (n={dec.count}); prefill "
-        f"{pre.total / max(n_chunks, 1) * 1e3:.3f} ms/chunk ({n_chunks} "
-        f"chunks of {chunk}); peak memory {peak_gb:.2f} GiB (KV pool "
-        f"{engine.kv_cache_bytes() / 2**20:.1f} MiB)")
+        f"{decode_p50_ms(np, plain_rows):.3f} ms (step_batch timed from "
+        f"outside, {sum(c == 0 for _, c in plain_rows)} decode-only steps); "
+        f"steps with prefill {prefill_s * 1e3:.1f} ms for {n_chunks} chunks "
+        f"of {chunk} and one decode each; peak memory {peak_gb:.2f} GiB (KV "
+        f"pool {engine.kv_cache_bytes() / 2**20:.1f} MiB)")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1308,14 +1490,31 @@ def run_engine(torch, np) -> dict:
         f"exact in {time.perf_counter() - t0:.1f} s; its zeroed live "
         f"adapters launched lora_matmul {ops.LAUNCHES['lora_matmul']} times "
         f"(M = 1, 4 per layer and token)")
-    profile_engine(torch, engine, prompts, len(ranks))
+    kw = dict(max_batch=8, max_seq=max_seq, page_size=page_size,
+              prefill_chunk=chunk)
+    names = [f"client{i % len(ranks)}" for i in range(8)]
+    want = {"launches": launches, "tokens": [outs[u] for u in uids],
+            "steps": n_steps}
+    rengine, rec = run_recorded_wave(
+        torch, np, ops, params, cfg, registry, prompts, names, kw, steps,
+        want, plain_rows)
+    cost = {label: recording_cost_us(label == "recorded")
+            for label in ("recorded", "unrecorded")}
+    log(f"  the recorder's host time a decode step, from a synthetic loop "
+        f"(a copy of the decode step's clock reads, annotation, span and "
+        f"histogram, {RECORD_REPS} times; not the engine): recorded "
+        f"{cost['recorded']:.3f} us, unrecorded {cost['unrecorded']:.3f} "
+        f"us; {cost['recorded'] / 1e3 / decode_p50_ms(np, plain_rows):.2e} "
+        f"of the unrecorded wave's decode step p50")
+    # the profiled wave runs on the recorded engine: its annotations mark
+    # each decode step in the profiler's trace
+    profile_engine(torch, rengine, prompts, len(ranks))
     return {"launches": launches, "params": params, "cfg": cfg,
+            "recorder": rec,
             "registry": registry, "prompts": prompts, "steps": steps,
             "plain": [outs[u] for u in uids], "oracle": oracle, "gaps": gaps,
             "plain_steps": n_steps,
-            "engine_kw": dict(max_batch=8, max_seq=max_seq,
-                              page_size=page_size, prefill_chunk=chunk),
-            "adapters": [f"client{i % len(ranks)}" for i in range(8)]}
+            "engine_kw": kw, "adapters": names}
 
 
 def profile_engine(torch, engine, prompts, n_adapters,
@@ -1324,18 +1523,23 @@ def profile_engine(torch, engine, prompts, n_adapters,
     the counted and checked wave, in two windows: the first engine step
     (admission and chunked prefill of every request, plus one decode or
     verify step) and the remaining steps. For each: the device-busy share
-    of the wall time and device time by kernel."""
+    of the wall time and device time by kernel. The engine records into a
+    ``Recorder(annotate=True)``, so the trace must hold one
+    ``serve.decode_step`` (or ``serve.verify_step``) range a step and one
+    ``serve.prefill_chunk`` range a chunk."""
     for i, p in enumerate(prompts):
         engine.submit(p, f"client{i % n_adapters}", max_new_tokens=8)
     steps0, chunks0 = engine.steps, engine.prefill_calls
-    events = profile_window(torch, "admission + prefill", engine.step_batch)
+    ranges = {}
+    events = profile_window(torch, "admission + prefill", engine.step_batch,
+                            ranges=ranges)
     chunks = engine.prefill_calls - chunks0
     flash = [(ms, n) for key, ms, n in events if "flash_" in key]
     flash_ms = sum(ms for ms, _ in flash)
     log(f"  flash kernels in that window: {flash_ms:.3f} ms of device time, "
         f"{sum(n for _, n in flash)} launches, over {chunks} prefill chunks: "
         f"{flash_ms / max(chunks, 1):.4f} ms per chunk")
-    events = profile_window(torch, step, engine.run)
+    events = profile_window(torch, step, engine.run, ranges=ranges)
     n = max(engine.steps - steps0 - 1, 1)
     paged = [(ms, c) for key, ms, c in events if "paged_" in key]
     paged_ms = sum(ms for ms, _ in paged)
@@ -1343,6 +1547,13 @@ def profile_engine(torch, engine, prompts, n_adapters,
         f"attention kernels {paged_ms:.3f} ms of device time, "
         f"{sum(c for _, c in paged)} launches: {paged_ms / n:.4f} ms per "
         f"step)")
+    want = {f"serve.{step}_step": engine.steps - steps0,
+            "serve.prefill_chunk": engine.prefill_calls - chunks0}
+    got = {k: ranges.get(k, 0) for k in want}
+    log(f"  record_function ranges in the profiled wave: {got} (expect "
+        f"{want}) {'ok' if got == want else 'FAIL'}")
+    if got != want:
+        raise AssertionError(f"annotation ranges {got} != {want}")
 
 
 SERVE_GROUPS = {"port kernels": ("bgmv_kernel", "paged_attn_kernel",
@@ -1389,7 +1600,7 @@ def group_ms(events, group, annotation=None) -> dict:
 
 
 def profile_window(torch, label, fn, group=serve_group,
-                   annotation=None) -> list:
+                   annotation=None, ranges=None) -> list:
     """``fn`` under torch.profiler: the device-busy share of its wall time
     (the sum of the traced kernels, copies and fills over the host time
     of the call) and device time by group and by kernel. The device events
@@ -1399,7 +1610,8 @@ def profile_window(torch, label, fn, group=serve_group,
     events launched from inside a ``record_function(annotation)`` range
     (matched through the launch's correlation id) form a group of that
     name, keyed "annotation: kernel". Returns (name, ms, launches) per
-    kernel, the largest first."""
+    kernel, the largest first. ``ranges``, a dict, gains the count of each
+    ``record_function`` range in the trace by name."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1417,6 +1629,10 @@ def profile_window(torch, label, fn, group=serve_group,
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in trace
              if e.get("cat") == "user_annotation"
              and e.get("name") == annotation]
+    if ranges is not None:
+        for e in trace:
+            if e.get("cat") == "user_annotation":
+                ranges[e["name"]] = ranges.get(e["name"], 0) + 1
     inside = {e["args"]["correlation"] for e in trace
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})
@@ -1454,21 +1670,25 @@ def profile_window(torch, label, fn, group=serve_group,
 def run_spec(torch, ctx) -> dict:
     """Four waves of phase 4's 8 requests with ``spec_k = 4`` on phase 4's
     weights and registry (no second copy), each on a fresh engine with the
-    launch counts set to 0 just before and read just after. Returns the
-    launches summed over the waves."""
+    launch counts set to 0 just before and read just after. Each wave's
+    engine records into phase 4's recorder under a name of its own; its
+    track must hold a ``verify_step`` span a dispatch, and the self drafter's
+    a ``draft`` span a dispatch that drafted. Returns the launches summed
+    over the waves."""
     from repro_torch.kernels import ops
     from repro_torch.serve import (NGramDrafter, ScriptedDrafter,
                                    SelfDrafter, ServeEngine)
 
     cfg, steps, plain = ctx["cfg"], ctx["steps"], ctx["plain"]
-    spec_k, layers = 4, cfg.num_layers
+    spec_k, layers, rec = 4, cfg.num_layers, ctx["recorder"]
 
-    def engine_with(drafter):
+    def engine_with(drafter, name=None):
+        kw = {} if name is None else dict(recorder=rec, name=name)
         return ServeEngine(ctx["params"], cfg, ctx["registry"],
                            drafter=drafter, spec_k=spec_k, device="cuda",
-                           **ctx["engine_kw"])
+                           **kw, **ctx["engine_kw"])
 
-    # warm-up (first verify and draft calls): not counted
+    # warm-up (first verify and draft calls): not counted, not recorded
     warm = engine_with(SelfDrafter(1))
     warm.submit(ctx["prompts"][0][:67], "client0", max_new_tokens=6)
     warm.run()
@@ -1480,8 +1700,8 @@ def run_spec(torch, ctx) -> dict:
              ("ngram(2)", NGramDrafter(2), None),
              ("self(2)", SelfDrafter(2), None)]
     total = {name: 0 for name in ops.LAUNCHES}
-    for label, drafter, scripts in waves:
-        engine = engine_with(drafter)
+    for j, (label, drafter, scripts) in enumerate(waves):
+        engine = engine_with(drafter, f"spec{j}")
         uids = [engine.submit(p, a, max_new_tokens=steps)
                 for p, a in zip(ctx["prompts"], ctx["adapters"])]
         if scripts is not None:
@@ -1497,8 +1717,20 @@ def run_spec(torch, ctx) -> dict:
         for name, n in launches.items():
             total[name] += n
         st = engine.spec_stats()
-        ver = engine.metrics.histogram("serve.decode_step_s")
-        pre = engine.metrics.histogram("serve.prefill_row_s")
+        ver = engine.metrics.histogram(f"{engine.name}.decode_step_s")
+        pre = engine.metrics.histogram(f"{engine.name}.prefill_row_s")
+        track = [e[1] for e in rec.events()
+                 if e[0] == "X" and e[2] == f"{engine.name}/engine"]
+        # the self drafter records a draft span a dispatch in which some
+        # row could still take a draft; the other drafters record none
+        drafts = sum(name == "draft" for name in track)
+        drafts_ok = 0 < drafts <= st["dispatches"] if isinstance(
+            drafter, SelfDrafter) else drafts == 0
+        if track.count("verify_step") != st["dispatches"] or not drafts_ok:
+            raise AssertionError(f"{label}: track {engine.name}/engine "
+                                 f"holds {track.count('verify_step')} "
+                                 f"verify_step and {drafts} draft spans for "
+                                 f"{st['dispatches']} dispatches")
         log(f"  {label}: {8 * steps / wall:.1f} tok/s ({wall:.3f} s), "
             f"{st['dispatches']} dispatches (plain decode took "
             f"{ctx['plain_steps']} steps), acceptance "
@@ -1506,7 +1738,9 @@ def run_spec(torch, ctx) -> dict:
             f"rollback pages {st['rollback_pages']}, verify step p50 "
             f"{ver.percentile(50) * 1e3:.3f} ms (n={ver.count}, total "
             f"{ver.total * 1e3:.1f} ms), prefill {pre.total * 1e3:.1f} ms "
-            f"({engine.prefill_calls} chunks); launches {launches}")
+            f"({engine.prefill_calls} chunks); launches {launches}; recorded "
+            f"as {engine.name}: {track.count('verify_step')} verify_step, "
+            f"{drafts} draft spans")
         for i, uid in enumerate(uids):
             msg = first_difference_ok(outs[uid], plain[i], ctx["oracle"][i],
                                       ctx["gaps"][i])
@@ -1540,8 +1774,9 @@ def run_spec(torch, ctx) -> dict:
         del engine
     log(f"  4 waves, every request equal to plain decode; launches summed "
         f"over the waves {total}")
-    profile_engine(torch, engine_with(NGramDrafter(2)), ctx["prompts"], 4,
-                   step="verify")
+    export_events(rec, "phase4+5")
+    profile_engine(torch, engine_with(NGramDrafter(2), "spec-profiled"),
+                   ctx["prompts"], 4, step="verify")
     return total
 
 
@@ -1584,7 +1819,7 @@ def run_training(torch, np) -> tuple:
                                  split_head, stack_client_data)
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
-    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs import MetricsRegistry, Recorder
     from repro_torch.optim import adamw, tree_map
     from repro_torch.optim.optimizers import tree_leaves
 
@@ -1693,8 +1928,9 @@ def run_training(torch, np) -> tuple:
                          init)
     cmasks = tree_map(lambda t: t.to("cuda"), stacked_masks)
     metrics = MetricsRegistry()
+    # the step times need the recorder's clock (and a synchronize a step)
     cohort = make_cohort_train(cfg, adamw(sim.lr), device="cuda",
-                               metrics=metrics)
+                               metrics=metrics, recorder=Recorder())
     warm = make_local_train(cfg, adamw(sim.lr), device="cuda")   # cuBLAS
     warm(frozen["card"], tree_map(lambda t: t[0], trainable),
          tree_map(lambda t: t[0], cmasks), {k: v[0, :1] for k, v in
@@ -2461,10 +2697,68 @@ def hold_history(label, rounds, hist, t0) -> None:
         raise AssertionError(f"{label}: history {hist}")
 
 
+def recorded_round(torch, np, cfg, base, want, want_hist) -> dict:
+    """Phase 8's recorded round: the first run's configuration for one
+    round through ``FedSession(recorder=)`` and ``round_scheduler``, which
+    must give round 0 of that run (``want``, ``want_hist``): the same
+    cohort, ranks, bytes, launches, losses and eval metrics, bit for bit.
+    The server's spans come as broadcast, collect, aggregate; the wire
+    samples sum to the comm log; the trace is exported under
+    ``build/obs/``. Returns the round's launches."""
+    from repro_torch.fed import (FedSession, ServerConfig, SimConfig,
+                                 make_experiment_setup)
+    from repro_torch.obs import Recorder
+
+    label, _, kw = ROUND_RUNS[0]
+    scfg = ServerConfig(**ROUND_SERVER, **kw)
+    rec = Recorder()
+    session_kwargs, cohort_train, _, data_fn, _, eval_fn = \
+        make_experiment_setup(cfg, SimConfig(rounds=1), scfg, base)
+    session = FedSession(cfg, scfg, recorder=rec, **session_kwargs)
+    sched = round_scheduler(torch, np, f"{label}, recorded",
+                            round_expect(cfg, scfg), profile=False)
+    hist = sched.run(session, cohort_train, data_fn, 1, eval_fn=eval_fn)
+    got = sched.rounds[0]
+    diff = [k for k in ("cohort", "ranks", "bytes", "launches")
+            if got[k] != want[k]]
+    diff += [k for k in ("train_loss", "eval_acc", "eval_loss",
+                         "downlink_bytes", "uplink_bytes")
+             if hist[k][0] != want_hist[k][0]]
+    events = rec.events()
+    server = [e[1] for e in events if e[0] == "X" and e[2] == "fed.server"]
+    wire = {}
+    for e in events:
+        if e[0] == "C" and e[2] == "fed.wire":
+            wire[e[1]] = wire.get(e[1], 0) + e[5][e[1]]
+    comm = {f"fed.{d}_bytes": sum(v) for d, v in session.comm_log.items()}
+    round_s = session.metrics.histogram("fed.round_s")
+    spans = {e[1]: e[4] for e in events if e[0] == "X"}
+    log(f"  recorded round (FedSession(recorder=)): against round 0 of "
+        f"'{label}': cohort, ranks, bytes, launches, losses and eval "
+        f"{'equal' if not diff else f'DIFFER in {diff}'}; fed.server spans "
+        f"{server}; fed.wire samples {wire} against the comm log {comm}; "
+        f"fed.round_s {round_s.total:.3f} s (n={round_s.count}; sample to "
+        f"aggregate, with the checks) beside the synchronized timers: wall "
+        f"{got['wall']:.3f} s without the checks ("
+        + ", ".join(f"{p} {got[p]:.3f}" for p in ROUND_PARTS)
+        + "); spans " + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    if diff:
+        raise AssertionError(f"recorded round differs from the unrecorded "
+                             f"in {diff}")
+    if server != ["broadcast", "collect", "aggregate"] or wire != comm or \
+            round_s.count != 1 or "train" not in spans:
+        raise AssertionError(f"recorded round: server spans {server}, wire "
+                             f"{wire} against {comm}, {round_s.count} "
+                             f"round times, spans {sorted(spans)}")
+    export_events(rec, "phase8")
+    return got["launches"]
+
+
 def run_rounds(torch, np, base) -> dict:
     """Phase 8: ``run_experiment`` on phase 6's full-width base, each run
-    driven by ``round_scheduler``. Returns the lora and recon_agg launches
-    over every checked round."""
+    driven by ``round_scheduler``, then the first run's first round again
+    with a recorder (``recorded_round``). Returns the lora and recon_agg
+    launches over every checked round."""
     from repro_torch.configs import get_config
     from repro_torch.fed import ServerConfig, SimConfig, run_experiment
 
@@ -2480,11 +2774,15 @@ def run_rounds(torch, np, base) -> dict:
         hist = run_experiment(cfg, SimConfig(rounds=rounds), scfg,
                               base_params=base, scheduler=sched)
         hold_history(label, rounds, hist, t0)
+        if i == 0:
+            first = (sched.rounds[0], hist)
         for k, v in sched.launches.items():
             totals[k] = totals.get(k, 0) + v
         walls += [r["wall"] for r in sched.rounds]
         for p in ROUND_PARTS:
             parts[p] += [r[p] for r in sched.rounds]
+    for k, v in recorded_round(torch, np, cfg, base, *first).items():
+        totals[k] = totals.get(k, 0) + v
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  round wall time p50 {np.median(walls):.3f} s over {len(walls)} "
         f"rounds (min {min(walls):.3f}, max {max(walls):.3f}); parts p50: "

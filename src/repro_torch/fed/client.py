@@ -11,7 +11,6 @@ forward and backward.
 from __future__ import annotations
 
 import copy
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -21,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import Transformer
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.recorder import NULL_RECORDER
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           tree_leaves, tree_map)
 
@@ -76,16 +76,21 @@ def loss_and_grads(frozen: Transformer, trainable: Trainable, masks: Masks,
 
 def make_local_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
                      q_chunk: int = 1024, device=None,
-                     metrics: Optional[MetricsRegistry] = None):
+                     metrics: Optional[MetricsRegistry] = None,
+                     recorder=None):
     """Returns local_train(frozen, trainable, masks, data) -> (trainable',
     mean_loss) with trainable = {"factors", "head"} and ``data`` leaves
     (steps, batch, ...), numpy or tensors; ``remat`` and ``q_chunk`` go to
     ``loss_fn`` (off and 1024, the reference's trainer defaults). Runs on
     ``device`` (None = CUDA, which must exist); ``frozen`` must already
-    live there. With ``metrics``, every step is timed to completion (a
-    device synchronise) into ``train.step_s`` and its loss read into
-    ``train.loss``."""
+    live there. With ``metrics``, every step's loss is read into
+    ``train.loss``; with an enabled ``recorder`` as well, every step is
+    timed to completion (a device synchronise) on the recorder's clock
+    into ``train.step_s``. Without one the trainer reads no clock and adds
+    no synchronise."""
     dev = resolve_device(device)
+    rec = recorder if recorder is not None else NULL_RECORDER
+    timed = metrics is not None and rec.enabled
 
     def local_train(frozen, trainable, masks, data):
         if frozen.embed.device != dev:
@@ -96,7 +101,7 @@ def make_local_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
         state = opt.init(trainable)
         losses = []
         for step in range(data["tokens"].shape[0]):
-            t0 = time.perf_counter()
+            t0 = rec.now() if timed else 0.0
             batch = {k: v[step] for k, v in data.items()}
             loss, grads = loss_and_grads(frozen, trainable, masks, batch, cfg,
                                          remat=remat, q_chunk=q_chunk)
@@ -104,11 +109,11 @@ def make_local_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
                 updates, state = opt.update(grads, state, trainable)
                 trainable = apply_updates(trainable, updates)
             losses.append(loss)
-            if metrics is not None:
+            if timed:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-                metrics.histogram("train.step_s").observe(
-                    time.perf_counter() - t0)
+                metrics.histogram("train.step_s").observe(rec.now() - t0)
+            if metrics is not None:
                 metrics.histogram("train.loss").observe(float(loss))
         return trainable, torch.stack(losses).mean()
 
@@ -117,12 +122,15 @@ def make_local_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
 
 def make_cohort_train(cfg: ModelConfig, opt: Optimizer, remat: bool = False,
                       q_chunk: int = 1024, device=None,
-                      metrics: Optional[MetricsRegistry] = None):
+                      metrics: Optional[MetricsRegistry] = None,
+                      recorder=None):
     """The local trainer over a client cohort: cohort_train(frozen,
     trainable, masks, data) -> (trainable', mean losses (C,)), where
     trainable, masks and data carry a leading cohort axis and the frozen
-    base is shared. Clients run one after another (the reference vmaps)."""
-    local = make_local_train(cfg, opt, remat, q_chunk, device, metrics)
+    base is shared. Clients run one after another (the reference vmaps).
+    ``metrics`` and ``recorder`` as for :func:`make_local_train`."""
+    local = make_local_train(cfg, opt, remat, q_chunk, device, metrics,
+                             recorder)
 
     def cohort_train(frozen, trainable, masks, data):
         cohort = tree_leaves(masks)[0].shape[0]

@@ -4,7 +4,12 @@
 A scheduler owns when training happens and when the session merges; the
 session owns what a merge means (strategy, redistribution, wire
 accounting). ``SyncRound`` is the cohort barrier: sample → broadcast →
-train the whole cohort → collect → one ``aggregate_round``.
+train the whole cohort → collect → one ``aggregate_round``. With the
+session's recorder on, each round records a ``round{n}`` span on
+``fed.rounds`` and a ``train`` span on ``fed.train`` (the server's phases
+record on ``fed.server``), and observes ``fed.round_s``. These spans do
+not block: the round's span ends after the aggregation's host code, whose
+last device work may still be queued.
 
 Not ported yet: ``SemiSync``, ``BufferedAsync`` and ``SyncRound``'s
 two-tier ``topology``.
@@ -56,18 +61,29 @@ class SyncRound(Scheduler):
         history: Dict[str, List] = {
             "round": [], "train_loss": [], "eval_acc": [], "eval_loss": [],
             "downlink_bytes": [], "uplink_bytes": [], "health": []}
+        rec = session.rec
         for i in range(num_rounds):
             rnd = session.rounds_done
+            t_rnd = rec.now() if rec.enabled else 0.0
             cohort = session.sample_cohort()
             stacked, heads = session.broadcast_cohort(cohort)
             factors, masks = split_adapters(stacked)
             trainable = {"factors": factors, "head": heads}
+            t_tr = rec.now() if rec.enabled else 0.0
             trainable, losses = train(session.base, trainable, masks,
                                       data_fn(cohort, rnd))
+            if rec.enabled:
+                rec.complete("train", "fed.train", t_tr, rec.now(),
+                             round=rnd, cohort=len(cohort))
             trained = join_adapters(trainable["factors"], masks)
             tree, up_heads = session.collect_updates(
                 cohort, trained, trainable["head"])
             session.aggregate_round(tree, cohort, stacked_heads=up_heads)
+            if rec.enabled:
+                t1 = rec.now()
+                rec.complete(f"round{rnd}", "fed.rounds", t_rnd, t1,
+                             cohort=len(cohort))
+                session.metrics.histogram("fed.round_s").observe(t1 - t_rnd)
             history["round"].append(rnd)
             history["train_loss"].append(float(losses.mean()))
             history["downlink_bytes"].append(session.comm_log["downlink"][-1])

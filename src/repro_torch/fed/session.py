@@ -29,10 +29,20 @@ distributions, not the same numbers.
   bit-generator state and the comm log in its JSON meta; the reference's
   keys, so each package restores what the other saved.
 
+* **Observability** (``recorder=``, ``obs/recorder.py``), as the
+  reference records it: ``broadcast``, ``collect`` and ``aggregate`` spans
+  on the ``fed.server`` track, a ``fed.downlink_bytes`` /
+  ``fed.uplink_bytes`` counter sample on ``fed.wire`` a logged message
+  batch, and ``health_anomaly`` instants on ``obs.slo``. The session's
+  spans do not block: each ends when its host code returns, with the
+  device work it queued perhaps still running (``collect`` and the
+  message serialization copy to the host, so they wait for what came
+  before them). The recorder never synchronizes.
+
 Not ported yet: the async merge (``flush_async``, ``adapter_for``,
 ``AsyncConfig``, and so the ``async`` state of a checkpoint, which
-``restore`` refuses), populations and samplers, wire codecs, the mesh and
-the recorder; passing any of them raises ``NotImplementedError``.
+``restore`` refuses), populations and samplers, wire codecs and the mesh;
+passing any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,6 +63,8 @@ from repro_torch.fed import strategies as strat_lib
 from repro_torch.fed.client import split_head
 from repro_torch.models import transformer as tf_lib
 from repro_torch.obs.metrics import MetricsRegistry, percentile
+from repro_torch.obs.recorder import NULL_RECORDER
+from repro_torch.obs.slo import SLO_TRACK
 
 
 @dataclass
@@ -121,8 +133,8 @@ class FedSession:
                  device=None):
         """``base_params``: a ``Transformer`` on ``device`` (None = CUDA,
         which must exist)."""
-        _not_ported(acfg=acfg, mesh=mesh, recorder=recorder,
-                    population=population, sampler=sampler, codec=codec)
+        _not_ported(acfg=acfg, mesh=mesh, population=population,
+                    sampler=sampler, codec=codec)
         if scfg.codec != "none":
             raise NotImplementedError(
                 f"ServerConfig.codec={scfg.codec!r}: wire codecs are not "
@@ -167,6 +179,10 @@ class FedSession:
         # measured wire bytes, one entry per broadcast_cohort /
         # collect_updates call
         self.comm_log: Dict[str, List[int]] = {"downlink": [], "uplink": []}
+        # recorder defaults to the no-op singleton; metrics are always on.
+        # Server phases record on "fed.server" (the scheduler puts rounds
+        # and client training on their own tracks, so no track nests)
+        self.rec = recorder if recorder is not None else NULL_RECORDER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         # per-round health rows (``health_snapshot``), observe-only
         self.health_log: List[Dict[str, float]] = []
@@ -174,10 +190,14 @@ class FedSession:
         self._health_seen: Dict[str, float] = {}
 
     def _log_comm(self, direction: str, nbytes: int) -> None:
-        """The comm accounting choke point: the per-call ``comm_log`` row
-        and a registry byte counter."""
+        """The comm accounting choke point: the per-call ``comm_log`` row,
+        a registry byte counter and, while recording, a wire-traffic
+        counter sample on the shared timeline."""
         self.comm_log.setdefault(direction, []).append(nbytes)
         self.metrics.counter(f"fed.{direction}_bytes").inc(int(nbytes))
+        if self.rec.enabled:
+            self.rec.counter_sample(f"fed.{direction}_bytes", "fed.wire",
+                                    int(nbytes))
 
     # -- cohort handling ----------------------------------------------------
 
@@ -270,23 +290,24 @@ class FedSession:
         """Redistribute to a cohort through the wire format: returns
         ``(stacked_tree, stacked_heads)`` rebuilt from the serialized
         ``Broadcast`` messages, and logs the measured downlink bytes."""
-        stacked = self.redistribute(cohort)
-        if not self.track_comm:
-            self._log_comm("downlink", 0)
-            return stacked, self.cohort_heads(cohort)
-        r_max = self.cfg.lora.r_max
-        per_client, heads, total = [], [], 0
-        for i, cid in enumerate(cohort):
-            sl = {t: {"A": ad["A"][i], "B": ad["B"][i]}
-                  for t, ad in stacked.items()}
-            wire = msg_lib.Broadcast.from_bytes(
-                self.make_broadcast(cid, sl).to_bytes())
-            total += wire.num_bytes
-            tree, head = wire.unpack(r_max, self.device)
-            per_client.append(tree)
-            heads.append(head)
-        self._log_comm("downlink", total)
-        return self._stack_clients(per_client, heads)
+        with self.rec.span("broadcast", "fed.server", cohort=len(cohort)):
+            stacked = self.redistribute(cohort)
+            if not self.track_comm:
+                self._log_comm("downlink", 0)
+                return stacked, self.cohort_heads(cohort)
+            r_max = self.cfg.lora.r_max
+            per_client, heads, total = [], [], 0
+            for i, cid in enumerate(cohort):
+                sl = {t: {"A": ad["A"][i], "B": ad["B"][i]}
+                      for t, ad in stacked.items()}
+                wire = msg_lib.Broadcast.from_bytes(
+                    self.make_broadcast(cid, sl).to_bytes())
+                total += wire.num_bytes
+                tree, head = wire.unpack(r_max, self.device)
+                per_client.append(tree)
+                heads.append(head)
+            self._log_comm("downlink", total)
+            return self._stack_clients(per_client, heads)
 
     def make_update(self, cid: int, trained_lora: Dict, start_version: int,
                     head=None, log: bool = True) -> msg_lib.ClientUpdate:
@@ -312,27 +333,28 @@ class FedSession:
         """Round-trip a trained cohort stack through ``ClientUpdate``
         messages (one uplink comm_log row a round) and return the
         re-stacked tree and heads for :meth:`aggregate_round`."""
-        if not self.track_comm:
-            self._log_comm("uplink", 0)
-            return trained_tree, trained_heads
-        r_max = self.cfg.lora.r_max
-        per_client, heads, total = [], [], 0
-        for i, cid in enumerate(cohort):
-            sl = {t: {leaf: ad[leaf][i] for leaf in ("A", "B", "mask")}
-                  for t, ad in trained_tree.items()}
-            h = None if trained_heads is None else \
-                {k: v[i] for k, v in trained_heads.items()}
-            upd = msg_lib.ClientUpdate.from_bytes(
-                self.make_update(cid, sl, self.version, h,
-                                 log=False).to_bytes())
-            total += upd.num_bytes
-            tree, head = upd.unpack(r_max, self.device)
-            per_client.append(tree)
-            heads.append(head)
-        self._log_comm("uplink", total)
-        out, heads_st = self._stack_clients(per_client, heads)
-        return out, (heads_st or None) if trained_heads is not None \
-            else None
+        with self.rec.span("collect", "fed.server", cohort=len(cohort)):
+            if not self.track_comm:
+                self._log_comm("uplink", 0)
+                return trained_tree, trained_heads
+            r_max = self.cfg.lora.r_max
+            per_client, heads, total = [], [], 0
+            for i, cid in enumerate(cohort):
+                sl = {t: {leaf: ad[leaf][i] for leaf in ("A", "B", "mask")}
+                      for t, ad in trained_tree.items()}
+                h = None if trained_heads is None else \
+                    {k: v[i] for k, v in trained_heads.items()}
+                upd = msg_lib.ClientUpdate.from_bytes(
+                    self.make_update(cid, sl, self.version, h,
+                                     log=False).to_bytes())
+                total += upd.num_bytes
+                tree, head = upd.unpack(r_max, self.device)
+                per_client.append(tree)
+                heads.append(head)
+            self._log_comm("uplink", total)
+            out, heads_st = self._stack_clients(per_client, heads)
+            return out, (heads_st or None) if trained_heads is not None \
+                else None
 
     # -- aggregation ---------------------------------------------------------
 
@@ -342,31 +364,33 @@ class FedSession:
         hlora and flora, Eq. 1 under naive), output at full rank r_max.
         Task heads are FedAvg'd with the same cohort weights under every
         strategy. ``weights`` overrides the per-client data weights."""
-        eta = self.cohort_weights(cohort) if weights is None \
-            else torch.as_tensor(weights, dtype=torch.float32,
-                                 device=self.device)
-        if stacked_heads:
-            self.global_head = {
-                k: torch.tensordot(eta, x.float(), dims=1).to(x.dtype)
-                for k, x in stacked_heads.items()}
-        full = {t: torch.ones_like(ad["mask"][:1])
-                for t, ad in stacked_trained.items()}
-        # drawn every round under every strategy, as the reference draws
-        # its key, so the session's stream stays aligned with it
-        gen = torch.Generator(device=self.device).manual_seed(
-            int(self.rng.integers(2 ** 31)))
-        out, spectra = self.engine(
-            stacked_trained, eta, self.cfg.lora.alpha,
-            **self.strategy.engine_kwargs(), new_masks=full, gen=gen)
-        self.global_lora = {
-            t: {"A": ad["A"][0], "B": ad["B"][0], "mask": ad["mask"][0]}
-            for t, ad in out.items()}
-        self.last_spectrum = spectra if self.strategy.has_spectrum \
-            else None
-        if self.scfg.rank_policy == "spectrum":
-            self.adapt_ranks()
-        self.rounds_done += 1
-        self.metrics.counter("fed.rounds").inc()
+        with self.rec.span("aggregate", "fed.server", cohort=len(cohort),
+                           round=self.rounds_done):
+            eta = self.cohort_weights(cohort) if weights is None \
+                else torch.as_tensor(weights, dtype=torch.float32,
+                                     device=self.device)
+            if stacked_heads:
+                self.global_head = {
+                    k: torch.tensordot(eta, x.float(), dims=1).to(x.dtype)
+                    for k, x in stacked_heads.items()}
+            full = {t: torch.ones_like(ad["mask"][:1])
+                    for t, ad in stacked_trained.items()}
+            # drawn every round under every strategy, as the reference
+            # draws its key, so the session's stream stays aligned with it
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(self.rng.integers(2 ** 31)))
+            out, spectra = self.engine(
+                stacked_trained, eta, self.cfg.lora.alpha,
+                **self.strategy.engine_kwargs(), new_masks=full, gen=gen)
+            self.global_lora = {
+                t: {"A": ad["A"][0], "B": ad["B"][0], "mask": ad["mask"][0]}
+                for t, ad in out.items()}
+            self.last_spectrum = spectra if self.strategy.has_spectrum \
+                else None
+            if self.scfg.rank_policy == "spectrum":
+                self.adapt_ranks()
+            self.rounds_done += 1
+            self.metrics.counter("fed.rounds").inc()
 
     # -- rank adaptation ----------------------------------------------------
 
@@ -429,8 +453,10 @@ class FedSession:
         dropped updates and staleness percentiles since the previous
         snapshot, appended to ``health_log``. With >= 3 earlier rows,
         each of ``_HEALTH_ANOMALY_KEYS`` is z-scored against them; a |z|
-        above ``health_z_threshold`` counts in ``fed.health.anomalies``.
-        Observe-only, from already-counted state."""
+        above ``health_z_threshold`` counts in ``fed.health.anomalies`` and,
+        while recording, records a ``health_anomaly`` instant on the
+        ``obs.slo`` track. Observe-only, from already-counted state (no
+        clock read)."""
         seen = self._health_seen
 
         def delta(key: str, cur: float) -> float:
@@ -472,6 +498,11 @@ class FedSession:
                 if abs(z) > self.health_z_threshold:
                     anomalies.append(k)
                     self.metrics.counter("fed.health.anomalies").inc()
+                    if self.rec.enabled:
+                        self.rec.instant("health_anomaly", SLO_TRACK,
+                                         metric=k, z=float(z),
+                                         value=snap[k],
+                                         round=self.rounds_done)
         snap["anomalies"] = float(len(anomalies))
         self.health_log.append(snap)
         return snap

@@ -87,7 +87,9 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
-    t0 = time.perf_counter()
+    # the build's one-shot time is a measurement kept in build_info, not a
+    # recorded event, so it reads the clock itself
+    t0 = time.perf_counter()  # repro: allow=clock-discipline (build time)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for src in sources():
@@ -114,6 +116,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
         os.replace(tmp_lib, out)
+    # repro: allow=clock-discipline (build time)
     build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs),
                       path=str(out))
     return out

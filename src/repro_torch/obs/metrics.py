@@ -1,12 +1,21 @@
-"""Metrics registry: counters, gauges and percentile histograms (a trimmed
-copy of ``repro/obs/metrics.py``). The engine's counters and the page
-allocator's gauges live here, under dotted names (``serve.steps``,
-``serve.pages.free``)."""
+"""Metrics registry: counters, gauges and percentile histograms (port of
+``repro/obs/metrics.py``).
+
+Where the recorder (``obs/recorder.py``) answers *when did things happen*,
+this module answers *how much and how fast overall*: the always-on half
+of the observability layer. A counter increment is one Python int add, so
+the engines keep their metrics on with event recording off; everything
+that needs a clock read (the latency histograms) is gated behind
+``recorder.enabled`` by the instrumented call sites.
+
+Naming: dotted lowercase paths (``serve.steps``, ``fed.uplink_bytes``,
+``serve.pages.free``). ``as_dict()`` and ``summary_text()`` flatten the
+whole registry for JSON export or human reading."""
 from __future__ import annotations
 
 import math
 from collections import deque
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 class Counter:
@@ -125,3 +134,35 @@ class MetricsRegistry:
         out.update({n: g.value for n, g in self._gauges.items()})
         out.update({n: h.summary() for n, h in self._histograms.items()})
         return out
+
+    def has(self, name: str) -> bool:
+        return (name in self._counters or name in self._gauges
+                or name in self._histograms)
+
+    def gauges(self) -> Dict[str, Gauge]:
+        """Read-only snapshot of the gauge namespace (the time-series store
+        samples level-valued state, such as pool occupancy, from here)."""
+        return dict(self._gauges)
+
+    def summary_text(self, title: Optional[str] = None) -> str:
+        """Aligned human-readable dump (the text exporter)."""
+        lines: List[str] = []
+        if title:
+            lines.append(title)
+            lines.append("-" * len(title))
+        scalars = {**{n: c.value for n, c in sorted(self._counters.items())},
+                   **{n: g.value for n, g in sorted(self._gauges.items())}}
+        if scalars:
+            w = max(len(n) for n in scalars)
+            for n, v in sorted(scalars.items()):
+                lines.append(f"{n:<{w}}  {v}")
+        for n, h in sorted(self._histograms.items()):
+            s = h.summary()
+            if not s["count"]:
+                lines.append(f"{n}  (empty)")
+                continue
+            lines.append(
+                f"{n}  n={s['count']} mean={s['mean']:.6g} "
+                f"p50={s['p50']:.6g} p90={s['p90']:.6g} "
+                f"p99={s['p99']:.6g} max={s['max']:.6g}")
+        return "\n".join(lines)

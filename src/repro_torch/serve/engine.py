@@ -32,11 +32,26 @@ the steps are eager PyTorch with a Python loop over layers, and the
 kernel launch counters in ``kernels/ops.py`` show which path ran. The KV
 pools are updated in place (``pool[page, slot] = k``) where the reference
 rebuilt them with ``.at[].set``.
+
+Observability (``recorder=``, ``obs/recorder.py``), as the reference
+records it: per-request instants (``submit``, ``admit``/``replay``,
+``defer``, ``extend``, ``preempt``, ``first_token``, ``finish``) on the
+request's track ``<name>/<uid>``, ``prefill_chunk`` spans there, and
+``decode_step``, ``verify_step`` and the self drafter's ``draft`` spans on
+``<name>/engine``; TTFT, per-request latency and tok/s histograms, and
+per-class TTFT attainment against ``slo_ttft_s`` (``slo_miss`` instants
+on ``obs.slo``). Every clock read sits behind ``if rec.enabled:``, so the
+step and prefill timings (``serve.decode_step_s``,
+``serve.prefill_row_s``) exist only while recording. A step span ends
+after the step's tokens reach the host, so it holds the step's device
+time; ``Recorder(annotate=True)`` also opens a
+``torch.profiler.record_function`` range (``serve.decode_step``,
+``serve.verify_step``, ``serve.prefill_chunk``, ``serve.draft_step``)
+around each dispatch.
 """
 from __future__ import annotations
 
 import math
-import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -48,7 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.common import _act, rope, sinusoidal_positions
 from repro_torch.models.transformer import layer_slice, norm
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import NULL_RECORDER, SLO_TRACK, MetricsRegistry
 from repro_torch.serve.pages import PagedKV
 
 
@@ -219,7 +234,8 @@ class ServeEngine:
                  num_pages: Optional[int] = None, prefill_chunk: int = 16,
                  drafter=None, spec_k: int = 4, mesh=None,
                  cache_dtype=torch.float32,
-                 metrics: Optional[MetricsRegistry] = None,
+                 recorder=None, metrics: Optional[MetricsRegistry] = None,
+                 slo_ttft_s: Optional[Dict[str, float]] = None,
                  name: str = "serve", device=None):
         if cfg.arch_type != "dense" or cfg.num_experts:
             raise NotImplementedError(
@@ -251,8 +267,19 @@ class ServeEngine:
         self.max_seq = int(max_seq)
         self.drafter = drafter
         self.spec_k = int(spec_k)
+        # Observability: ``rec`` defaults to the no-op singleton (hot paths
+        # guard clock reads with ``if rec.enabled:``); ``metrics`` is always
+        # on, and the counter views below write through to it.
+        self.rec = recorder if recorder is not None else NULL_RECORDER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.name = str(name)
+        self._engine_track = f"{self.name}/engine"
+        # Per-class TTFT targets ({class: seconds}); a class without one
+        # counts as attained. Attainment needs TTFT and TTFT the clock, so
+        # these counters move only while recording (observe-only: nothing
+        # schedules by class).
+        self.slo_ttft_s: Dict[str, float] = dict(slo_ttft_s or {})
+        self._slo_classes: set = set()
         self.page_size = int(page_size)
         pages_per_row = -(-self.max_seq // self.page_size)
         if num_pages is None:
@@ -298,6 +325,47 @@ class ServeEngine:
     drafted_tokens = _counter_view("spec.drafted")
     accepted_tokens = _counter_view("spec.accepted")
     rollback_pages = _counter_view("spec.rollback_pages")
+
+    # -- request tracks ------------------------------------------------------
+
+    def _track(self, req: dict) -> str:
+        return f"{self.name}/{req['uid']}"
+
+    def _note_first_token(self, req: dict) -> None:
+        """First generated token: TTFT against the submit stamp, and the
+        request's SLO-class attainment (a class with no target counts as
+        attained, so it still gets traffic counts). Once a request."""
+        if "_ts" not in req or "_ttft" in req:
+            return
+        t = self.rec.now()
+        req["_ttft"] = t - req["_ts"]
+        self.metrics.histogram(f"{self.name}.ttft_s").observe(req["_ttft"])
+        self.rec.instant("first_token", self._track(req),
+                         ttft_s=req["_ttft"])
+        cls = req.get("slo")
+        if cls is not None:
+            self._slo_classes.add(cls)
+            self.metrics.histogram(
+                f"{self.name}.ttft_s.{cls}").observe(req["_ttft"])
+            self.metrics.counter(f"{self.name}.slo.{cls}.total").inc()
+            target = self.slo_ttft_s.get(cls)
+            if target is None or req["_ttft"] <= target:
+                self.metrics.counter(f"{self.name}.slo.{cls}.ok").inc()
+            else:
+                self.rec.instant("slo_miss", SLO_TRACK, cls=cls,
+                                 uid=req["uid"], ttft_s=req["_ttft"],
+                                 target_s=float(target))
+
+    def slo_attainment(self) -> Dict[str, float]:
+        """Measured TTFT attainment per SLO class seen so far (ok / total;
+        1.0 before any traffic in a class)."""
+        out: Dict[str, float] = {}
+        for cls in sorted(self._slo_classes):
+            total = self.metrics.counter(
+                f"{self.name}.slo.{cls}.total").value
+            ok = self.metrics.counter(f"{self.name}.slo.{cls}.ok").value
+            out[cls] = (ok / total) if total else 1.0
+        return out
 
     # -- introspection ------------------------------------------------------
 
@@ -403,7 +471,8 @@ class ServeEngine:
     # -- scheduler ----------------------------------------------------------
 
     def submit(self, prompt, adapter_id: str,
-               max_new_tokens: int = 16) -> str:
+               max_new_tokens: int = 16,
+               slo_class: Optional[str] = None) -> str:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -416,9 +485,18 @@ class ServeEngine:
             raise KeyError(f"unknown adapter {adapter_id!r}")
         uid = f"req{self._uid}"
         self._uid += 1
-        self._queue.append({"uid": uid, "prompt": prompt, "out": [], "t": 0,
-                            "max_new": int(max_new_tokens),
-                            "adapter": adapter_id})
+        req = {"uid": uid, "prompt": prompt, "out": [], "t": 0,
+               "max_new": int(max_new_tokens), "adapter": adapter_id}
+        if slo_class is not None:
+            req["slo"] = str(slo_class)
+        if self.rec.enabled:
+            req["_ts"] = self.rec.now()
+            extra = {"slo_class": req["slo"]} if "slo" in req else {}
+            self.rec.instant("submit", self._track(req),
+                             prompt=int(prompt.size),
+                             max_new=int(max_new_tokens),
+                             adapter=adapter_id, **extra)
+        self._queue.append(req)
         return uid
 
     def _finish(self, row: int, req: dict) -> None:
@@ -426,6 +504,16 @@ class ServeEngine:
         self.registry.release(req["adapter"])
         self.kv.release(row)
         self._rows[row] = None
+        if self.rec.enabled and "_ts" in req:
+            dur = self.rec.now() - req["_ts"]
+            self.metrics.histogram(f"{self.name}.request_s").observe(dur)
+            if dur > 0:
+                self.metrics.histogram(
+                    f"{self.name}.request_tok_s").observe(
+                    len(req["out"]) / dur)
+            self.rec.instant("finish", self._track(req),
+                             tokens=len(req["out"]),
+                             replays=req.get("_replays", 0))
 
     def _preempt(self, row: int) -> None:
         """Evict a row: free its pages and adapter pin and replay the
@@ -437,6 +525,9 @@ class ServeEngine:
         req.update(t=0, out=[])
         req.pop("slot", None)
         req["_replays"] = req.get("_replays", 0) + 1
+        if self.rec.enabled:
+            self.rec.instant("preempt", self._track(req),
+                             pages_freed=int(pages_freed))
         self._queue.appendleft(req)
         self._rows[row] = None
         self.preemptions += 1
@@ -453,6 +544,9 @@ class ServeEngine:
             need = self.kv.pages_for(head["prompt"].size + 1)
             if self.kv.allocator.free_count < need:
                 self.deferrals += 1
+                if self.rec.enabled:
+                    self.rec.instant("defer", self._track(head),
+                                     need_pages=int(need))
                 break   # FCFS: wait for pages, don't starve the head
             row = free_rows[0]
             try:
@@ -464,6 +558,10 @@ class ServeEngine:
             req["slot"] = slot
             self._rows[row] = req
             admitted += 1
+            if self.rec.enabled:
+                self.rec.instant(
+                    "replay" if req.get("_replays") else "admit",
+                    self._track(req), row=int(row))
             if not self.kv.admit(row, need):   # free_count said yes
                 raise RuntimeError(
                     f"page accounting violated: admission of row {row} "
@@ -476,7 +574,8 @@ class ServeEngine:
         then the first generated token from the last valid position."""
         prompt = req["prompt"]
         c = self.prefill_chunk
-        t0 = time.perf_counter()
+        rec = self.rec
+        t_row = rec.now() if rec.enabled else 0.0
         idx = torch.full((1,), req["slot"], dtype=torch.int32,
                          device=self.device)
         table_row = self._to_device(self.kv.tables[row:row + 1])
@@ -485,17 +584,26 @@ class ServeEngine:
             nv = min(c, prompt.size - lo)
             toks = np.zeros((1, c), np.int32)
             toks[0, :nv] = prompt[lo:lo + nv]
-            x = self._prefill_chunk(table_row, idx, self._to_device(toks),
-                                    lo, nv)
+            # the chunk's span is host time only: the chunk is not waited
+            # for, its device time lands in the row's first-token read
+            t0 = rec.now() if rec.enabled else 0.0
+            with rec.annotation("serve.prefill_chunk"):
+                x = self._prefill_chunk(table_row, idx,
+                                        self._to_device(toks), lo, nv)
+            if rec.enabled:
+                rec.complete("prefill_chunk", self._track(req), t0,
+                             rec.now(), pos0=int(lo), tokens=int(nv))
             self.prefill_calls += 1
         self.prefill_tokens += int(prompt.size)
         with torch.no_grad():
             first = int(torch.argmax(self._logits(x[0, nv - 1])))
-        self.metrics.histogram(f"{self.name}.prefill_row_s").observe(
-            time.perf_counter() - t0)
         req["t"] = int(prompt.size)
         req["out"] = [first]
         self.tokens_generated += 1
+        if rec.enabled:
+            self.metrics.histogram(f"{self.name}.prefill_row_s").observe(
+                rec.now() - t_row)
+            self._note_first_token(req)
         if len(req["out"]) >= req["max_new"]:
             self._finish(row, req)
 
@@ -521,29 +629,31 @@ class ServeEngine:
             if self.kv.allocated(row) >= needed:
                 continue
             grow = needed - self.kv.allocated(row)
-            if self.kv.extend(row, grow):
-                continue
-            alloc.pin(row)
-            victims = alloc.victims(grow)
-            alloc.unpin(row)
-            if victims is None:
-                raise RuntimeError(
-                    f"KV pool exhausted: row {row} needs {grow} more "
-                    f"page(s) and no unpinned row can be preempted")
-            if any(self._rows[int(v)]["t"] >= req["t"] for v in victims):
-                # Never tear down a row at least as far along as the one
-                # asking: at exactly-critical pressure the laggard and the
-                # leader would otherwise preempt each other forever.
-                # Re-queueing the laggard keeps the most advanced row
-                # monotone, so decode always terminates.
-                self._preempt(row)
-                continue
-            for victim in victims:
-                self._preempt(int(victim))
-            if not self.kv.extend(row, grow):  # victims covered grow
-                raise RuntimeError(
-                    f"page accounting violated: row {row} cannot extend by "
-                    f"{grow} page(s) after preemption")
+            if not self.kv.extend(row, grow):
+                alloc.pin(row)
+                victims = alloc.victims(grow)
+                alloc.unpin(row)
+                if victims is None:
+                    raise RuntimeError(
+                        f"KV pool exhausted: row {row} needs {grow} more "
+                        f"page(s) and no unpinned row can be preempted")
+                if any(self._rows[int(v)]["t"] >= req["t"] for v in victims):
+                    # Never tear down a row at least as far along as the
+                    # one asking: at exactly-critical pressure the laggard
+                    # and the leader would otherwise preempt each other
+                    # forever. Re-queueing the laggard keeps the most
+                    # advanced row monotone, so decode always terminates.
+                    self._preempt(row)
+                    continue
+                for victim in victims:
+                    self._preempt(int(victim))
+                if not self.kv.extend(row, grow):  # victims covered grow
+                    raise RuntimeError(
+                        f"page accounting violated: row {row} cannot extend "
+                        f"by {grow} page(s) after preemption")
+            if self.rec.enabled:
+                self.rec.instant("extend", self._track(req),
+                                 pages=int(grow))
 
     def _slot_order(self, idx: np.ndarray, active_mask: np.ndarray):
         """Stable permutation grouping batch rows by adapter slot (inactive
@@ -594,21 +704,32 @@ class ServeEngine:
             pos[i] = t
             idx[i] = req["slot"]
             lens[i] = t + 1
-        t0 = time.perf_counter()
+        rec = self.rec
+        t0 = rec.now() if rec.enabled else 0.0
         perm, inv = self._slot_order(idx, lens > 0)
         dev = self._to_device
-        logits = self._decode_step(dev(self.kv.tables[perm]), dev(idx[perm]),
-                                   dev(tokens[perm]), dev(pos[perm]),
-                                   dev(lens[perm]))
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()[inv]
-        self.metrics.histogram(f"{self.name}.decode_step_s").observe(
-            time.perf_counter() - t0)
+        with rec.annotation("serve.decode_step"):
+            logits = self._decode_step(
+                dev(self.kv.tables[perm]), dev(idx[perm]), dev(tokens[perm]),
+                dev(pos[perm]), dev(lens[perm]))
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(
+                )[inv]
+        if rec.enabled:
+            # the .cpu() above waited for the logits, so this span is a
+            # true step latency (host and device)
+            t1 = rec.now()
+            rec.complete("decode_step", self._engine_track, t0, t1,
+                         batch=len(active))
+            self.metrics.histogram(
+                f"{self.name}.decode_step_s").observe(t1 - t0)
         self.steps += 1
         for i, req in active:
             req["t"] += 1
             if req["t"] >= req["prompt"].size:       # past prefill: sample
                 req["out"].append(int(nxt[i]))
                 self.tokens_generated += 1
+                if rec.enabled:
+                    self._note_first_token(req)
             if len(req["out"]) >= req["max_new"]:    # finished: recycle row
                 self._finish(i, req)
 
@@ -639,16 +760,22 @@ class ServeEngine:
             nv[i] = k_b + 1
             pos0[i] = req["t"]
             idx[i] = req["slot"]
-        t0 = time.perf_counter()
         perm, inv = self._slot_order(idx, nv > 0)
+        rec = self.rec
+        t0 = rec.now() if rec.enabled else 0.0
         dev = self._to_device
-        logits = self._verify_step(dev(self.kv.tables[perm]), dev(idx[perm]),
-                                   dev(tokens[perm]), dev(pos0[perm]),
-                                   dev(nv[perm]))
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(
-            )[inv]
-        self.metrics.histogram(f"{self.name}.decode_step_s").observe(
-            time.perf_counter() - t0)
+        with rec.annotation("serve.verify_step"):
+            logits = self._verify_step(
+                dev(self.kv.tables[perm]), dev(idx[perm]), dev(tokens[perm]),
+                dev(pos0[perm]), dev(nv[perm]))
+            greedy = torch.argmax(logits, dim=-1).to(torch.int32).cpu(
+                ).numpy()[inv]
+        if rec.enabled:
+            t1 = rec.now()
+            rec.complete("verify_step", self._engine_track, t0, t1,
+                         batch=len(active))
+            self.metrics.histogram(
+                f"{self.name}.decode_step_s").observe(t1 - t0)
         self.steps += 1
         self.spec_dispatches += 1
         for i, req in active:

@@ -75,15 +75,25 @@ class SelfDrafter:
         alive = (lens > 0).astype(np.int32)
         dev = engine._to_device
         tables, idx_d = dev(engine.kv.tables), dev(idx)
+        rec = engine.rec
+        t0 = rec.now() if rec.enabled else 0.0
         for step in range(k_use):
-            logits = engine._decode_step(tables, idx_d, dev(cur), dev(pos),
-                                         dev(lens), layers=self.draft_layers)
-            nxt = logits.argmax(dim=-1).int().cpu().numpy()
+            with rec.annotation("serve.draft_step"):
+                logits = engine._decode_step(tables, idx_d, dev(cur),
+                                             dev(pos), dev(lens),
+                                             layers=self.draft_layers)
+                nxt = logits.argmax(dim=-1).int().cpu().numpy()
             for j, (i, _) in enumerate(active):
                 props[j, step] = nxt[i]
             cur = nxt[:, None].copy()
             pos = pos + alive
             lens = lens + alive
+        if rec.enabled:
+            # one span a draft burst, ended after its last tokens reached
+            # the host; the verify span starts after this returns, so the
+            # engine track never nests
+            rec.complete("draft", engine._engine_track, t0, rec.now(),
+                         k=int(k_use), batch=len(active))
         return props
 
 

@@ -79,7 +79,9 @@ def test_port_modules_mirror_the_reference_layout():
                 "core/agg_engine.py", "core/seeds.py", "core/rank.py",
                 "fed/strategies.py", "fed/messages.py", "fed/session.py",
                 "fed/schedulers.py", "util.py", "checkpoint/store.py",
-                "launch/train.py"):
+                "launch/train.py", "obs/recorder.py", "obs/export.py",
+                "obs/timeseries.py", "obs/slo.py", "obs/collect.py",
+                "obs/report.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

@@ -64,6 +64,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.fed import schedulers as t_sched
 from repro_torch.fed import session as t_session
 from repro_torch.fed import simulation as t_sim
+from repro_torch.obs import Recorder
 
 LOSS = dict(rtol=1e-4, atol=1e-5)
 UPDATE_REL = 1e-4
@@ -452,11 +453,34 @@ class _Stub:
     """A stand-in for what the port does not take."""
 
 
-@pytest.mark.parametrize("kw", ["acfg", "mesh", "recorder", "population",
-                                "sampler", "codec"])
+@pytest.mark.parametrize("kw", ["acfg", "mesh", "population", "sampler",
+                                "codec"])
 def test_session_refuses_what_is_not_ported(weights, kw):
     with pytest.raises(NotImplementedError, match=kw):
         _session(weights, **{kw: _Stub()})
+
+
+def test_session_records_its_phases_on_a_recorder(weights):
+    """A recorder is taken: one cohort through broadcast, collect and
+    aggregate records those three spans on ``fed.server``, in that order,
+    and one wire sample a direction, equal to the comm log."""
+    rec = Recorder()
+    t = _session(weights, recorder=rec)
+    cohort = t.sample_cohort()
+    tree, heads = t.broadcast_cohort(cohort)
+    tc, th = t.collect_updates(cohort, tree, heads)
+    t.aggregate_round(tc, cohort, stacked_heads=th)
+    spans = [(e[1], e[5]) for e in rec.events() if e[0] == "X"]
+    assert spans == [("broadcast", {"cohort": 3}),
+                     ("collect", {"cohort": 3}),
+                     ("aggregate", {"cohort": 3, "round": 0})]
+    assert all(e[2] == "fed.server" for e in rec.events() if e[0] == "X")
+    wire = [(e[1], e[2], e[5]) for e in rec.events() if e[0] == "C"]
+    assert wire == [
+        ("fed.downlink_bytes", "fed.wire",
+         {"fed.downlink_bytes": t.comm_log["downlink"][0]}),
+        ("fed.uplink_bytes", "fed.wire",
+         {"fed.uplink_bytes": t.comm_log["uplink"][0]})]
 
 
 def test_round_refusals(weights):

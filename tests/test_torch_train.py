@@ -55,6 +55,7 @@ from repro_torch.fed import (SimConfig, client_params, evaluate,
                              stack_client_data)
 from repro_torch.models import model as t_model
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.recorder import Recorder
 from repro_torch.optim import optimizers as t_opt
 from repro_torch.optim import schedules as t_sched
 
@@ -348,8 +349,9 @@ def test_local_train_matches_reference(setup):
                         jax.tree.map(jnp.asarray, masks),
                         jax.tree.map(jnp.asarray, data))
     metrics = MetricsRegistry()
+    # step times need the recorder's clock; the losses only the registry
     tlocal = make_local_train(tcfg, t_opt.adamw(LR), device="cpu",
-                              metrics=metrics)
+                              metrics=metrics, recorder=Recorder())
     ttr, tloss = tlocal(setup["tfrozen"],
                         interop.tree_from_numpy(setup["trainable"], "cpu"),
                         interop.tree_from_numpy(masks, "cpu"), data)
