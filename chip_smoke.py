@@ -36,8 +36,9 @@ Phases, each of which raises on failure:
    through the plain version, and every other rank variant built (R 13,
    29, 64) forward and backward;
    recon_agg (float32) batched at the server's shapes on RoBERTa-large
-   (48 items, Kc 4 and 20, d 1024, R 8), ragged, at rank 16 and in the
-   single-item form, with the same bits on a second call;
+   (48 items, Kc 4, 5 (an async flush of 4 updates and the global) and
+   20, d 1024, R 8), ragged, at rank 16 and in the single-item form, with
+   the same bits on a second call;
 4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
@@ -139,7 +140,27 @@ Phases, each of which raises on failure:
    without and with ``remat`` (q_chunk 256) and at one chunk of 1024:
    the same gradients (``REMAT_REL``, ``QCHUNK_REL``), 72 or 144
    forwards, each variant's peak memory and time;
-12. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+12. the semi-synchronous and buffered asynchronous rounds on phase 6's
+   base (rebuilt from its seed), 16 clients of speeds 0.5 to 2.0: (a)
+   ``run_experiment(scheduler=SemiSync(speeds, deadline_quantile=0.75))``,
+   hlora ``factored``, 4 clients a round, 3 rounds under phase 8's checks
+   (a)-(e), the survivors, stragglers, round time and force-keep
+   recomputed from the speeds, the uplink the survivors' messages alone,
+   the whole cohort's launches; one round with an infinite deadline
+   against one ``SyncRound`` round from the same state, bit for bit; (b)
+   ``run_experiment(scheduler=BufferedAsync(speeds, buffer_size=4,
+   acfg=AsyncConfig(base_weight=0.5)))``, 12 events: the event order and
+   staleness against a heap simulated on the host, flushes [4, 4, 4] with
+   one engine call each, version 12, every message and event's byte
+   columns, 48 launches of each lora kernel a local step, after each
+   flush the global adapter against float64 Eq. 2-3 of the stack (phase
+   7's (c) and (d)) and the head against the float64 weighted mean; the
+   last buffer again under ``randomized``: recon_agg once, at Kc 5, the
+   card's flush against a CPU session's and float64; (c) a mid-flight
+   checkpoint: 4 events, ``save``, ``FedSession.restore``, 3 events
+   against 7 straight, integers equal and floats bit for bit; wall time,
+   peak memory, p50 time a round and an event;
+13. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1146,7 +1167,8 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
 def check_recon_agg(torch, ops, recon_mod, gen) -> dict:
     """recon_agg at the server's shapes on RoBERTa-large (48 items: q and v
     x 24 layers, d 1024, r_max 8) with phase 6's cohort (Kc 4, the main
-    path's shape, whose row this returns) and bench_server.py's (Kc 20);
+    path's shape, whose row this returns), phase 12's flush of 4 updates
+    into the global (Kc 5) and bench_server.py's (Kc 20);
     then ragged, in the single-item form and at rank 16. Every output is
     held to the plain version to 1e-5 of its largest value: float32 sums
     of Kc·R products in another order."""
@@ -1162,7 +1184,7 @@ def check_recon_agg(torch, ops, recon_mod, gen) -> dict:
         eta = torch.rand(bt, kc, generator=gen, device="cuda") + 0.5
         return a, b, eta
 
-    for kc in (4, 20):
+    for kc in (4, 5, 20):
         a, b, eta = inputs(48, kc, 1024, 8, 1024)
         got = ops.recon_agg(a, b, eta)
         err = compare_scaled(f"batched (48, {kc}, 1024, 8) -> 1024", got,
@@ -2533,20 +2555,26 @@ def hold_rank_adaptation(np, session, label):
         raise AssertionError(f"{label}: rank adaptation disagrees")
 
 
-def round_scheduler(torch, np, label, expect, profile):
-    """A ``SyncRound`` that runs each round with the checks of phase 8 on
-    its way: every part (broadcast, train, collect, aggregate, eval)
-    timed between device synchronizations, every message held by (a) and
-    (b), the launch counts reset when the round starts and read when it
-    ends (d), (c) and (f) after each merge (their time left out of the
-    round's), and, with ``profile``, one more round under torch.profiler.
-    ``expect(session)`` gives the launches a round must make."""
+def round_scheduler(torch, np, label, expect, profile, base=None,
+                    **fields):
+    """A ``SyncRound`` (or another cohort scheduler, ``base``, built with
+    ``fields``: phase 12's ``SemiSync``) that runs each round with the
+    checks of phase 8 on its way: every part (broadcast, train, collect,
+    aggregate, eval) timed between device synchronizations, every message
+    held by (a) and (b) against its client's ranks, the launch counts
+    reset when the round starts and read when it ends (d), (c) and (f)
+    after each merge (their time left out of the round's), and, with
+    ``profile``, one more round under torch.profiler. ``expect(session)``
+    gives the launches a round must make. Each round's record keeps the
+    cohort sampled and the clients collected."""
     from repro_torch.fed import SyncRound
     from repro_torch.fed.session import FedSession
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import lora_specs
 
-    class ChipRound(SyncRound):
+    base = SyncRound if base is None else base
+
+    class ChipRound(base):
         def run(self, session, train, data_fn, num_rounds, eval_fn=None,
                 eval_every=1):
             cfg = session.cfg
@@ -2596,10 +2624,11 @@ def round_scheduler(torch, np, label, expect, profile):
                 t0 = time.perf_counter()
                 rnd = f"{label} round {session.rounds_done - 1}"
                 nbytes = {"down": 0, "up": 0}
-                for (way, full, msg), ranks in zip(
-                        cur["msgs"], cur["ranks"] * 2):
-                    nbytes[way] += hold_message(torch, msg, full, ranks,
-                                                specs, head_bytes, r_max, L)
+                rank_of = dict(zip(cur["cohort"], cur["ranks"]))
+                for way, full, msg in cur["msgs"]:
+                    nbytes[way] += hold_message(
+                        torch, msg, full, rank_of[msg.client_id], specs,
+                        head_bytes, r_max, L)
                 cur["bytes"] = nbytes
                 if session.strategy.scale_correction:
                     hold_scale_correction(torch, session, cohort, tree, rnd)
@@ -2639,8 +2668,11 @@ def round_scheduler(torch, np, label, expect, profile):
             session.make_update = make_update
             session.broadcast_cohort = timed(
                 "broadcast", lambda c: FedSession.broadcast_cohort(session, c))
-            session.collect_updates = timed(
-                "collect", lambda *a: FedSession.collect_updates(session, *a))
+            def collect(cohort, *a):
+                cur["collected"] = [int(c) for c in cohort]
+                return FedSession.collect_updates(session, cohort, *a)
+
+            session.collect_updates = timed("collect", collect)
             session.aggregate_round = aggregate_checked
             hist = super().run(session, timed("train", train), data_fn,
                                num_rounds, evaluate, eval_every)
@@ -2655,12 +2687,12 @@ def round_scheduler(torch, np, label, expect, profile):
                 delattr(session, name)
             if profile:
                 profile_window(torch, f"{label}: one more round (round "
-                               f"{num_rounds})", lambda: SyncRound.run(
+                               f"{num_rounds})", lambda: base.run(
                                    self, session, train, data_fn, 1, eval_fn,
                                    eval_every), group=train_group)
             return hist
 
-    return ChipRound()
+    return ChipRound(**fields)
 
 
 def round_expect(cfg, scfg):
@@ -3653,6 +3685,666 @@ def run_lm_training(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the semi-synchronous and buffered asynchronous rounds on
+# full-width RoBERTa-large
+# ---------------------------------------------------------------------------
+
+# Phase 6's base (the same seed, built on the CPU and moved), phase 8's 16
+# clients with ranks in [2, 8], each client's relative speed from the
+# reference's example (fed_finetune.py): 0.5 to 2.0.
+ASYNC_SPEEDS = (0.5, 2.0)
+# (a) SemiSync: the deadline is the 0.75 quantile of 1 / speed, hlora
+#     factored, 4 clients a round, 3 rounds
+SEMI_ROUNDS = 3
+SEMI_QUANTILE = 0.75
+# (b) BufferedAsync: 12 events (3 rounds x 4 clients), merged 4 at a time
+ASYNC_BUFFER = 4
+ASYNC_BASE_WEIGHT = 0.5
+# the head after a flush, normwise against the float64 weighted mean of the
+# global head and the buffer's heads: float32 products of K + 1 terms
+ASYNC_HEAD_REL = 1e-5
+# (c) mid-flight: buffer 3, no drain, 4 events + save + restore + 3 events
+# against 7 straight
+MIDFLIGHT_BUFFER = 3
+MIDFLIGHT_SPLIT = (4, 3)
+
+
+def semisync_keep(np, speeds, cohort, deadline):
+    """The reference's survivors, stragglers and simulated round time,
+    recomputed here: a client survives when 1 / speed <= the deadline; when
+    none does, the fastest is kept; the round closes at the slowest
+    duration if nobody was cut, else at the deadline or the kept fastest's
+    duration, whichever is later."""
+    dur = 1.0 / speeds[np.asarray(cohort)]
+    keep = dur <= deadline
+    forced = not keep.any()
+    if forced:
+        keep[np.argmin(dur)] = True
+    rt = float(dur.max()) if keep.all() else float(
+        max(deadline, dur[keep].max()))
+    return [c for c, k in zip(cohort, keep) if k], int((~keep).sum()), rt, \
+        forced
+
+
+def run_semisync(torch, np, cfg, base, speeds) -> dict:
+    """(a) ``run_experiment(scheduler=SemiSync(speeds, deadline_quantile=
+    0.75))``, every round under phase 8's checks (a), (b), (c), (d), and
+    (e), the survivors, stragglers, round time and force-keep recomputed
+    here, the uplink the survivors' messages alone; then one round with an
+    infinite deadline against one ``SyncRound`` round from the same
+    session state, bit for bit. Returns the launches and the rounds' wall
+    times."""
+    from repro_torch.fed import (FedSession, SemiSync, ServerConfig,
+                                 SimConfig, SyncRound, make_experiment_setup,
+                                 run_experiment)
+
+    scfg = ServerConfig(**ROUND_SERVER, strategy="hlora",
+                        svd_method="factored", rank_policy="random")
+    expect = round_expect(cfg, scfg)
+    label = "(a) SemiSync, hlora factored"
+    sched = round_scheduler(torch, np, label, expect, profile=False,
+                            base=SemiSync, speeds=speeds,
+                            deadline_quantile=SEMI_QUANTILE)
+    deadline = sched.resolved_deadline()
+    if deadline != float(np.quantile(1.0 / speeds, SEMI_QUANTILE)):
+        raise AssertionError(f"(a) deadline {deadline}")
+    t0 = time.perf_counter()
+    hist = run_experiment(cfg, SimConfig(rounds=SEMI_ROUNDS), scfg,
+                          base_params=base, scheduler=sched)
+    hold_history(label, SEMI_ROUNDS, hist, t0)
+    forced_rounds = []
+    for i, r in enumerate(sched.rounds):
+        kept, cut, rt, forced = semisync_keep(np, speeds, r["cohort"],
+                                              deadline)
+        ups = [m.client_id for way, _, m in r["msgs"] if way == "up"]
+        ok = (r["collected"] == kept == ups and hist["stragglers"][i] == cut
+              and hist["round_time"][i] == rt)
+        forced_rounds += [i] if forced else []
+        log(f"  {label} round {i}: durations "
+            f"{[round(float(1.0 / speeds[c]), 4) for c in r['cohort']]} "
+            f"against "
+            f"the deadline {deadline:.4f}: kept {r['collected']}, "
+            f"stragglers {hist['stragglers'][i]}, round time "
+            f"{hist['round_time'][i]:.4f} (recomputed: kept {kept}, {cut}, "
+            f"{rt:.4f}{', force-kept' if forced else ''}); uplink "
+            f"{hist['uplink_bytes'][i]} bytes in {len(ups)} messages, the "
+            f"survivors' {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} round {i}: survivors differ")
+    log(f"  {label}: force-keep fired in rounds {forced_rounds} (none "
+        f"expected unless every client of a cohort is slower than the "
+        f"deadline)")
+    launches = dict(sched.launches)
+    walls = [r["wall"] for r in sched.rounds]
+
+    # one round with an infinite deadline against one SyncRound round, each
+    # from a fresh session of the same configuration (the same state)
+    (session_kw, train, _, data_fn, _, eval_fn) = make_experiment_setup(
+        cfg, SimConfig(rounds=1), scfg, base, device="cuda")
+    sessions, hists = {}, {}
+    for name, sch in (
+            ("SyncRound", round_scheduler(torch, np, "(a) SyncRound", expect,
+                                          profile=False)),
+            ("SemiSync(deadline=inf)", round_scheduler(
+                torch, np, "(a) SemiSync(deadline=inf)", expect,
+                profile=False, base=SemiSync, speeds=speeds,
+                deadline=float("inf")))):
+        sessions[name] = FedSession(cfg, scfg, device="cuda", **session_kw)
+        hists[name] = sch.run(sessions[name], train, data_fn, 1,
+                              eval_fn=eval_fn)
+        for k, v in sch.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        walls += [r["wall"] for r in sch.rounds]
+    (ss, sh), (ms, mh) = ((sessions[n], hists[n]) for n in sessions)
+    differ = [k for k in sh if mh[k] != sh[k]]
+    differ += _factor_bits_equal(torch, ms.global_lora, ss.global_lora)
+    differ += [f"head {k}" for k in _factor_bits_equal(
+        torch, ms.global_head, ss.global_head)]
+    ok = not differ and mh["stragglers"] == [0]
+    log(f"  (a) SemiSync(deadline=inf) against SyncRound, one round from the "
+        f"same state: history, global factors and head "
+        f"{'bit for bit ok' if ok else f'DIFFER in {differ} FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) deadline=inf differs from SyncRound in "
+                             f"{differ}")
+    return {"launches": launches, "walls": walls}
+
+
+def host_heap(speeds, events, buffer, max_staleness):
+    """The reference's event loop simulated on the host from the speeds
+    alone: each event's (time, client, start version) and the staleness of
+    every update at its flush."""
+    import heapq
+    heap = [(1.0 / speeds[c], c, 0) for c in range(len(speeds))]
+    heapq.heapify(heap)
+    version, buf, order, stale = 0, [], [], []
+    for _ in range(events):
+        t, c, v = heapq.heappop(heap)
+        order.append((t, c, v))
+        buf.append(v)
+        if len(buf) == buffer:
+            taus = [version - x for x in buf]
+            stale += taus
+            version += sum(tau <= max_staleness for tau in taus)
+            buf = []
+        heapq.heappush(heap, (t + 1.0 / speeds[c], c, version))
+    return order, stale
+
+
+def flush_truth(torch, alpha, stack, etan):
+    """Eq. 2-3 of a flush in float64, target by target: ``stack`` is
+    {target: [(A, B, mask) of the global, then of each update]}, ``etan``
+    the normalized float64 weights. Returns {target: (dW' (L, d, d), its
+    singular values, its rank-r_max truncation (L, 1, d, d))}."""
+    out = {}
+    for t, items in stack.items():
+        a = torch.stack([x[0] for x in items]).double()      # (K, L, d, r)
+        b = torch.stack([x[1] for x in items]).double()
+        m = torch.stack([x[2] for x in items]).double()      # (K, L, r)
+        r = m.shape[-1]
+        coef = etan[:, None] * alpha / torch.clamp(m.sum(-1), min=1.0)
+        k, n_l, d_in, _ = a.shape
+        a = (a * (m * coef[..., None])[..., None, :]).permute(
+            1, 2, 0, 3).reshape(n_l, d_in, k * r)
+        b = (b * m[..., :, None]).permute(1, 0, 2, 3).reshape(n_l, k * r, -1)
+        out[t] = float64_truncations(torch, a, b, [r])
+    return out
+
+
+def hold_flush(torch, label, truth, lora, alpha):
+    """A flush's new global adapter (its effective update, at rank r_max)
+    against the float64 truth by phase 7's (c) and (d) limits."""
+    from repro_torch.core.lora import delta_w
+    r_max = next(iter(lora.values()))["mask"].shape[-1]
+    for t, (dw, sig, trunc) in sorted(truth.items()):
+        upd = delta_w({k: v.double() for k, v in lora[t].items()},
+                      alpha)[:, None]
+        hold_eckart_young(torch, f"{label} {t}", dw, sig, upd, [r_max])
+        hold_updates(torch, f"{label} {t}", upd, trunc, sig, [r_max])
+
+
+def async_weights(np, acfg, version, updates):
+    """The reference's flush weights in float64 on the host, normalized:
+    the global's residual, then each kept update's."""
+    taus = [version - int(u.start_version) for u in updates]
+    keep = [i for i, tau in enumerate(taus) if tau <= acfg.max_staleness]
+    n = np.asarray([max(int(updates[i].num_examples), 1) for i in keep],
+                   np.float64)
+    ws = [acfg.base_weight * (1.0 + taus[i]) ** (-acfg.staleness_exp)
+          * (n[j] / n.mean()) for j, i in enumerate(keep)]
+    eta = np.asarray([max(1.0 - sum(ws), 0.0)] + ws, np.float64)
+    return eta / eta.sum(), keep
+
+
+def async_scheduler(torch, np, cfg, label, speeds):
+    """A ``BufferedAsync`` that checks each event and flush on its way:
+    every message by phase 8's (a) and (b), each event's byte columns
+    against its two messages, each local step's launches (48 of each lora
+    kernel), each eval's (48 forward), none in a flush (``factored``) or a
+    re-broadcast; after each flush, the new global adapter against the
+    float64 Eq. 2-3 of the stack (``flush_truth``, ``hold_flush``) and the
+    head against the float64 weighted mean. Each event is timed from its
+    batch to its re-broadcast, between device synchronizations, the
+    checks left out. Keeps the last flush's inputs for the randomized
+    flush."""
+    from repro_torch.fed import BufferedAsync
+    from repro_torch.fed.session import FedSession
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lora_specs
+
+    specs, r_max, L = lora_specs(cfg), cfg.lora.r_max, cfg.num_layers
+    alpha = cfg.lora.alpha
+    per_step = {"lora_matmul": 2 * L, "lora_matmul_dx": 2 * L,
+                "lora_matmul_grad_ab": 2 * L}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                if v != before[k]}
+
+    class ChipAsync(BufferedAsync):
+        def run(self, session, local_train, data_fn, num_events,
+                eval_fn=None, eval_every=None):
+            head_bytes = sum(v.numel() * v.element_size()
+                             for v in session.global_head.values())
+            self.events, self.msgs, self.flushes = [], [], []
+            self.engine_calls = 0
+            self.launches, self.cids = {}, []
+            cur = {"event": -1, "checks": 0.0}
+
+            def count(d):
+                for k, v in d.items():
+                    self.launches[k] = self.launches.get(k, 0) + v
+
+            def data(cid):
+                torch.cuda.synchronize()
+                cur.update(event=len(self.events), start=time.perf_counter(),
+                           checks=0.0)
+                self.cids.append(int(cid))
+                return data_fn(cid)
+
+            def train(base, trainable, masks, batch):
+                before = dict(ops.LAUNCHES)
+                out = local_train(base, trainable, masks, batch)
+                got = delta(before)
+                steps = int(batch["tokens"].shape[0])
+                want = {k: v * steps for k, v in per_step.items()}
+                if got != want:
+                    raise AssertionError(f"{label} event {cur['event']}: "
+                                         f"launches {got} != {want}")
+                count(got)
+                return out
+
+            def evaluate(lora, head):
+                before = dict(ops.LAUNCHES)
+                m = eval_fn(lora, head)
+                got = delta(before)
+                if got != {"lora_matmul": 2 * L}:
+                    raise AssertionError(f"{label}: eval launches {got}")
+                count(got)
+                return m
+
+            def make_broadcast(cid, sl):
+                msg = FedSession.make_broadcast(session, cid, sl)
+                self.msgs.append((cur["event"], "down", sl, msg))
+                return msg
+
+            def make_update(cid, tree, start_version, head=None, log=True):
+                msg = FedSession.make_update(session, cid, tree,
+                                             start_version, head, log)
+                self.msgs.append((cur["event"], "up", tree, msg))
+                return msg
+
+            def flush_async(updates):
+                g = session.global_lora
+                head0 = session.global_head
+                version = session.version
+                etan, keep = async_weights(np, session.acfg, version,
+                                           updates)
+                adapters = [session._unpack_update_adapter(updates[i])
+                            for i in keep]
+                before = dict(ops.LAUNCHES)
+                calls = self.engine_calls
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flags = FedSession.flush_async(session, updates)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if delta(before) or self.engine_calls != calls + 1 or \
+                        not all(flags):
+                    raise AssertionError(f"{label}: flush launches "
+                                         f"{delta(before)}, engine calls "
+                                         f"{self.engine_calls - calls}, "
+                                         f"flags {flags}")
+                t1 = time.perf_counter()
+                n = len(self.flushes)
+                etan_t = torch.tensor(etan, dtype=torch.float64,
+                                      device="cuda")
+                stack = {t: [(g[t]["A"], g[t]["B"], g[t]["mask"])]
+                         + [(ad[t]["A"], ad[t]["B"], ad[t]["mask"])
+                            for ad in adapters] for t in g}
+                hold_flush(torch, f"{label} flush {n} (K {len(keep)})",
+                           flush_truth(torch, alpha, stack, etan_t),
+                           session.global_lora, alpha)
+                heads = [head0] + [updates[i].head for i in keep]
+                worst = 0.0
+                for k, v in session.global_head.items():
+                    want = sum(w * h[k].double() for w, h in
+                               zip(etan_t, heads))
+                    worst = max(worst, rel_err(v, want.cpu()))
+                if not worst <= ASYNC_HEAD_REL:
+                    raise AssertionError(f"{label} flush {n}: head rel err "
+                                         f"{worst}")
+                self.flushes.append(dict(
+                    ms=ms, version=version, head_rel=worst,
+                    staleness=[version - int(u.start_version)
+                               for u in updates],
+                    inputs=(g, head0, list(updates), version)))
+                log(f"  {label} flush {n}: {len(updates)} updates at version"
+                    f" {version}, staleness {self.flushes[-1]['staleness']},"
+                    f" weights {[round(float(w), 6) for w in etan]}; "
+                    f"{ms:.3f} ms; one engine call, no kernel of ours; head "
+                    f"rel err {worst:.2e} (<= {ASYNC_HEAD_REL:.0e}) ok")
+                torch.cuda.synchronize()
+                cur["checks"] += time.perf_counter() - t1
+                return flags
+
+            def adapter_for(cid):
+                before = dict(ops.LAUNCHES)
+                out = FedSession.adapter_for(session, cid)
+                if delta(before):
+                    raise AssertionError(f"{label}: adapter_for launched "
+                                         f"{delta(before)}")
+                if cur["event"] >= 0:
+                    torch.cuda.synchronize()
+                    self.events.append(time.perf_counter() - cur["start"]
+                                       - cur["checks"])
+                return out
+
+            engine = session.engine
+            sched = self
+
+            class Counting:
+                def __call__(self_, *a, **kw):
+                    sched.engine_calls += 1
+                    return engine(*a, **kw)
+
+            session.engine = Counting()
+            session.make_broadcast = make_broadcast
+            session.make_update = make_update
+            session.flush_async = flush_async
+            session.adapter_for = adapter_for
+            try:
+                hist = super().run(session, train, data, num_events,
+                                   evaluate if eval_fn else None, eval_every)
+            finally:
+                for name in ("make_broadcast", "make_update", "flush_async",
+                             "adapter_for"):
+                    delattr(session, name)
+                session.engine = engine
+            self.session = session
+            # (a) (b) every message; each event's columns against its own
+            t1 = time.perf_counter()
+            per_event = {}
+            for event, way, full, msg in self.msgs:
+                n = hold_message(torch, msg, full,
+                                 session._client_ranks(msg.client_id), specs,
+                                 head_bytes, r_max, L)
+                key = "downlink_bytes" if way == "down" else "uplink_bytes"
+                per_event.setdefault((event, key), []).append(n)
+            for e in range(num_events):
+                for key in ("downlink_bytes", "uplink_bytes"):
+                    got = per_event.get((e, key), [])
+                    if len(got) != 1 or hist[key][e] != got[0]:
+                        raise AssertionError(f"{label} event {e}: {key} "
+                                             f"{hist[key][e]} against the "
+                                             f"messages' {got}")
+            cold = len(per_event.get((-1, "downlink_bytes"), []))
+            log(f"  {label}: (a) (b) {len(self.msgs)} messages held ({cold} "
+                f"cold broadcasts); every event's byte columns equal to its "
+                f"update and its re-broadcast ok ({time.perf_counter() - t1:.1f}"
+                f" s of checks)")
+            return hist
+
+    return ChipAsync
+
+
+def run_buffered_async(torch, np, cfg, base, cpu_base, speeds) -> dict:
+    """(b) ``run_experiment(scheduler=BufferedAsync(speeds, buffer_size=4,
+    acfg=AsyncConfig(base_weight=0.5)))``: 12 events under
+    ``async_scheduler``'s checks, the event order and staleness against
+    ``host_heap``, flushes [4, 4, 4] with one engine call each, version 12;
+    then the last flush's buffer flushed again under ``randomized``:
+    recon_agg launched once, at Kc 5, and the card's flush against the same
+    buffer flushed by a CPU session (phase 7's (b) and (d) limits) and
+    against float64 Eq. 2-3 (phase 7's (c) and (d)). Returns the launches
+    and the events' wall times."""
+    from repro_torch.core import agg_engine
+    from repro_torch.fed import (AsyncConfig, FedSession, ServerConfig,
+                                 SimConfig, run_experiment)
+    from repro_torch.kernels import ops
+
+    scfg = ServerConfig(**ROUND_SERVER, strategy="hlora",
+                        svd_method="factored", rank_policy="random")
+    acfg = AsyncConfig(base_weight=ASYNC_BASE_WEIGHT)
+    label = "(b) BufferedAsync, hlora factored"
+    sim = SimConfig(rounds=SEMI_ROUNDS)
+    events = sim.rounds * scfg.clients_per_round
+    sched = async_scheduler(torch, np, cfg, label, speeds)(
+        speeds=speeds, buffer_size=ASYNC_BUFFER, acfg=acfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = run_experiment(cfg, sim, scfg, base_params=base, scheduler=sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    session = sched.session
+    # the run's launches, read once after it, are the events' and evals'
+    run_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if run_launches != sched.launches:
+        raise AssertionError(f"{label}: launches {run_launches} against "
+                             f"the events' and evals' {sched.launches}")
+    order, stale = host_heap(speeds, events, ASYNC_BUFFER,
+                             acfg.max_staleness)
+    versions = [int(m.start_version) for _, way, _, m in sched.msgs
+                if way == "up"]
+    got_order = list(zip(hist["time"], sched.cids, versions))
+    values = hist["eval_acc"] + hist["eval_loss"]
+    ok = (got_order == order and session.staleness_log == stale
+          == hist["staleness"] and hist["flush_events"] == [ASYNC_BUFFER] * 3
+          and all(hist["accepted"]) and sched.engine_calls == 3
+          and session.version == events and len(hist["eval_acc"]) == 4
+          and all(math.isfinite(v) for v in values))
+    log(f"  {label}: {events} events in {wall:.1f} s; clients "
+        f"{sched.cids}, times {[round(float(t), 4) for t in hist['time']]}"
+        f", start "
+        f"versions {versions}; staleness {session.staleness_log} (host heap: "
+        f"{stale}); flush_events {hist['flush_events']}, engine calls "
+        f"{sched.engine_calls}, version {session.version}; eval acc "
+        f"{[round(v, 4) for v in hist['eval_acc']]}, eval loss "
+        f"{[round(v, 5) for v in hist['eval_loss']]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: events {got_order} against {order}, "
+                             f"history {hist}")
+    launches = dict(sched.launches)
+
+    # the last flush's buffer again, under randomized, on the card and on
+    # the CPU, from the global adapter and head it met
+    g, head0, updates, version = sched.flushes[-1]["inputs"]
+    rcfg = ServerConfig(**ROUND_SERVER, strategy="hlora",
+                        svd_method="randomized", rank_policy="random")
+    sides = {}
+    for side, dev, params in (("card", "cuda", base), ("host", "cpu",
+                                                        cpu_base)):
+        s = FedSession(cfg, rcfg, params, client_sizes=session.client_sizes,
+                       acfg=acfg, device=dev)
+        s.global_lora = {t: {k: v.to(dev) for k, v in ad.items()}
+                         for t, ad in g.items()}
+        s.global_head = {k: v.to(dev) for k, v in head0.items()}
+        s.version = version
+        sides[side] = s
+    shapes = []
+    launch = ops.recon_agg
+
+    def recorded(a, b, eta):
+        shapes.append(tuple(a.shape))
+        return launch(a, b, eta)
+
+    agg_engine.ops.recon_agg = recorded
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        sides["card"].flush_async(updates)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    finally:
+        agg_engine.ops.recon_agg = launch
+    t0 = time.perf_counter()
+    sides["host"].flush_async(updates)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    kc = len(updates) + 1
+    want_shape = (2 * cfg.num_layers, kc, cfg.d_model, cfg.lora.r_max)
+    ok = got == {"recon_agg": 1} and shapes[:1] == [want_shape]
+    log(f"  (b) the last buffer again under randomized: {ms:.3f} ms on the "
+        f"card, {cpu_ms:.1f} ms on the CPU; launches {got}, recon_agg at "
+        f"{shapes} (expect one, at {want_shape}: Kc {kc}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(b) randomized flush: launches {got}, "
+                             f"shapes {shapes}")
+    launches["recon_agg"] = launches.get("recon_agg", 0) + 1
+    etan, keep = async_weights(np, acfg, version, updates)
+    adapters = [sides["card"]._unpack_update_adapter(updates[i])
+                for i in keep]
+    stack = {t: [(g[t]["A"], g[t]["B"], g[t]["mask"])]
+             + [(ad[t]["A"], ad[t]["B"], ad[t]["mask"]) for ad in adapters]
+             for t in g}
+    truth = flush_truth(torch, cfg.lora.alpha, stack, torch.tensor(
+        etan, dtype=torch.float64, device="cuda"))
+    ranks = sum(int(ad[t]["mask"][0].sum()) for ad in adapters
+                for t in list(ad)[:1])
+    where = "(b) randomized flush"
+    if ranks + cfg.lora.r_max > cfg.lora.r_max + AGG_OVERSAMPLE:
+        where += (f" (ranks summing to {ranks} + the global's "
+                  f"{cfg.lora.r_max} > r_max + oversample: outside "
+                  f"svd_randomized's contract)")
+    hold_flush(torch, f"{where}, card against float64", truth,
+               sides["card"].global_lora, cfg.lora.alpha)
+    from repro_torch.core.lora import delta_w
+    for t, (dw, sig, _) in sorted(truth.items()):
+        card, cpu = (delta_w({k: v.double().cuda() for k, v in
+                              sides[d].global_lora[t].items()},
+                             cfg.lora.alpha)[:, None] for d in ("card", "host"))
+        hold_spectra(f"(b) randomized flush {t}, card against CPU",
+                     sides["card"].last_spectrum[t].double(),
+                     sides["host"].last_spectrum[t].double().cuda(), sig)
+        hold_updates(torch, f"(b) randomized flush {t}, card against CPU",
+                     card, cpu, sig, [cfg.lora.r_max])
+    return {"launches": launches, "walls": sched.events}
+
+
+def run_midflight(torch, np, cfg, base, speeds) -> dict:
+    """(c) ``BufferedAsync(buffer_size=3, drain=False)`` on the card with
+    batches that depend on the client and its call count alone: 4 events,
+    ``save``, ``FedSession.restore``, 3 events, against 7 straight. The
+    heap, staleness, versions, comm logs and the buffer's bytes equal; the
+    global factors and head bit for bit. Returns the launches."""
+    import shutil
+    from repro_torch.data import (client_batches, dirichlet_partition,
+                                  make_pair_classification)
+    from repro_torch.fed import (AsyncConfig, BufferedAsync, FedSession,
+                                 ServerConfig, SimConfig,
+                                 make_experiment_setup)
+    from repro_torch.kernels import ops
+
+    scfg = ServerConfig(**ROUND_SERVER, strategy="hlora",
+                        svd_method="factored", rank_policy="random")
+    sim = SimConfig()
+    (session_kw, _, local_train, _, _, _) = make_experiment_setup(
+        cfg, sim, scfg, base, device="cuda")
+    tokens, labels = make_pair_classification(
+        sim.task, sim.num_examples, seed=sim.seed, vocab_size=cfg.vocab_size)
+    shards = dirichlet_partition(labels, scfg.num_clients,
+                                 sim.dirichlet_alpha, seed=sim.seed)
+
+    def stateless():
+        calls = {}
+
+        def data(cid):
+            n = calls[cid] = calls.get(cid, 0) + 1
+            return client_batches(tokens, labels, shards[cid],
+                                  sim.local_steps, sim.local_batch,
+                                  seed=1000 * n + int(cid))
+        return data
+
+    def sched():
+        return BufferedAsync(speeds=speeds, buffer_size=MIDFLIGHT_BUFFER,
+                             acfg=AsyncConfig(max_staleness=50), drain=False)
+
+    ckpt = os.path.join(ROOT, "build", "phase12", "midflight")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first, second = MIDFLIGHT_SPLIT
+    launches = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    t0 = time.perf_counter()
+    full = FedSession(cfg, scfg, device="cuda", **session_kw)
+    counted(lambda: sched().run(full, local_train, stateless(),
+                                first + second))
+    t_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a = FedSession(cfg, scfg, device="cuda", **session_kw)
+    data = stateless()
+    counted(lambda: sched().run(a, local_train, data, first))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    path = a.save(ckpt)
+    t2 = time.perf_counter()
+    b = FedSession.restore(ckpt, cfg, scfg, device="cuda", **session_kw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    restored = (b.async_state["heap"] == a.async_state["heap"]
+                and [u.to_bytes() for u in b.async_state["buffer"]]
+                == [u.to_bytes() for u in a.async_state["buffer"]]
+                and sorted(b.async_state["pending"])
+                == list(range(scfg.num_clients)))
+    counted(lambda: sched().run(b, local_train, data, second))
+    t_split = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(path, "arrays.npz"))
+    ints = (restored and b.version == full.version
+            and b.staleness_log == full.staleness_log
+            and b.async_state["heap"] == full.async_state["heap"]
+            and b.comm_log == full.comm_log
+            and [u.to_bytes() for u in b.async_state["buffer"]]
+            == [u.to_bytes() for u in full.async_state["buffer"]])
+    differ = _factor_bits_equal(torch, b.global_lora, full.global_lora)
+    differ += [f"head {k}" for k in _factor_bits_equal(
+        torch, b.global_head, full.global_head)]
+    per_step = 2 * cfg.num_layers * sim.local_steps * 2 * (first + second)
+    want = {"lora_matmul": per_step, "lora_matmul_dx": per_step,
+            "lora_matmul_grad_ab": per_step}
+    got = {k: v for k, v in launches.items() if v}
+    log(f"  (c) mid-flight: {first + second} events straight in "
+        f"{t_full:.1f} s; {first} events, save ({(t2 - t1) * 1e3:.1f} ms, "
+        f"arrays.npz {size} bytes, {len(a.async_state['buffer'])} update(s) "
+        f"buffered, version {a.version}), restore ({(t3 - t2) * 1e3:.1f} "
+        f"ms) and {second} more in {t_split:.1f} s: heap, staleness "
+        f"{b.staleness_log}, version {b.version}, comm logs and buffer bytes "
+        f"{'equal ok' if ints else 'DIFFER FAIL'}; global factors and head "
+        + ("bit for bit ok" if not differ else f"DIFFER in {differ} FAIL")
+        + f"; launches {got} (expect {want}) "
+        f"{'ok' if got == want else 'FAIL'}")
+    if not ints or differ or got != want:
+        raise AssertionError("(c) the mid-flight resume differs")
+    return got
+
+
+def run_async_rounds(torch, np) -> dict:
+    """Phase 12 on phase 6's base (the same seed): (a) ``run_semisync``,
+    (b) ``run_buffered_async``, (c) ``run_midflight``; the wall time, peak
+    memory and each scheduler's p50 time a round or an event. Returns the
+    launches of all three."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("roberta-large")
+    t0 = time.perf_counter()
+    cpu = model_lib.init_params(cfg, seed=0, device="cpu")
+    base = cpu.to_device("cuda")
+    speeds = np.linspace(*ASYNC_SPEEDS, ROUND_SERVER["num_clients"])
+    log(f"  phase 6's base rebuilt from its seed in "
+        f"{time.perf_counter() - t0:.1f} s; 16 clients, speeds "
+        f"{[round(float(v), 3) for v in speeds]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    semi = run_semisync(torch, np, cfg, base, speeds)
+    buffered = run_buffered_async(torch, np, cfg, base, cpu, speeds)
+    for part in (semi["launches"], buffered["launches"],
+                 run_midflight(torch, np, cfg, base, speeds)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  SemiSync round wall p50 {np.median(semi['walls']):.3f} s over "
+        f"{len(semi['walls'])} rounds (min {min(semi['walls']):.3f}, max "
+        f"{max(semi['walls']):.3f}); BufferedAsync event wall p50 "
+        f"{np.median(buffered['walls']):.3f} s over "
+        f"{len(buffered['walls'])} events (min "
+        f"{min(buffered['walls']):.3f}, max {max(buffered['walls']):.3f}); "
+        f"peak memory {peak:.2f} GiB; {device_line()}")
+    return launches
+
 
 def main() -> int:
     import numpy as np
@@ -3756,6 +4448,17 @@ def main() -> int:
     for name, n in run_lm_training(torch, np).items():
         launches[name] += n
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[12] the semi-synchronous and buffered asynchronous rounds: "
+        "full-width roberta-large")
+    t0 = time.perf_counter()
+    # a sixth counted path for the lora kernels and a fourth for recon_agg:
+    # SemiSync's rounds, BufferedAsync's events and its randomized flush,
+    # and the mid-flight resume's events
+    for name, n in run_async_rounds(torch, np).items():
+        launches[name] += n
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

@@ -1,5 +1,6 @@
-"""FedSession, the server side of a synchronous federated run (port of the
-synchronous part of ``repro/fed/session.py``).
+"""FedSession, the server side of a federated run (port of
+``repro/fed/session.py``): synchronous rounds and buffered asynchronous
+merges on one session.
 
 * **State**: frozen base, global adapter at r_max, task head, per-client
   ranks, per-target rank caps, the numpy rng, the round counter, the comm
@@ -9,10 +10,15 @@ synchronous part of ``repro/fed/session.py``).
 * **Redistribution**: ``redistribute`` masks the global adapter to each
   client's rank (clamped by per-target caps from spectrum adaptation) and
   applies the strategy's scale correction.
-* **Wire accounting** (``fed/messages.py``): ``broadcast_cohort`` and
-  ``collect_updates`` round-trip the payloads through serialized
-  ``Broadcast`` / ``ClientUpdate`` messages and log the measured bytes;
-  the round trip is exact, so the measured path is the compute path.
+* **Wire accounting** (``fed/messages.py``): ``broadcast_cohort``,
+  ``adapter_for``, ``collect_updates`` and ``make_update`` round-trip the
+  payloads through serialized ``Broadcast`` / ``ClientUpdate`` messages and
+  log the measured bytes; the round trip is exact, so the measured path is
+  the compute path.
+* **Merges**: ``aggregate_round`` (a synchronous cohort) and
+  ``flush_async`` (a buffer of asynchronous updates, each discounted by
+  its staleness under ``AsyncConfig``) are the only merge entry points;
+  both make one engine call and run the same rank adaptation after it.
 
 The session draws from one ``np.random.default_rng(scfg.seed)`` exactly as
 the reference does: the cohort, the capacities of the ``capacity`` policy
@@ -26,12 +32,15 @@ distributions, not the same numbers.
 * **Checkpoint / resume** (``save``, ``restore``): the global factors and
   masks, the head and the ranks through ``repro_torch.checkpoint``, the
   round counters, ``target_ranks``, the strategy's name, the rng's
-  bit-generator state and the comm log in its JSON meta; the reference's
-  keys, so each package restores what the other saved.
+  bit-generator state and the comm log in its JSON meta, and, inside a
+  ``BufferedAsync`` run, its live state (the event heap, the pending
+  adapters and the K-buffer's wire bytes) under ``async``; the reference's
+  keys, so each package restores what the other saved, mid-flight
+  included.
 
 * **Observability** (``recorder=``, ``obs/recorder.py``), as the
-  reference records it: ``broadcast``, ``collect`` and ``aggregate`` spans
-  on the ``fed.server`` track, a ``fed.downlink_bytes`` /
+  reference records it: ``broadcast``, ``collect``, ``aggregate`` and
+  ``flush`` spans on the ``fed.server`` track, a ``fed.downlink_bytes`` /
   ``fed.uplink_bytes`` counter sample on ``fed.wire`` a logged message
   batch, and ``health_anomaly`` instants on ``obs.slo``. The session's
   spans do not block: each ends when its host code returns, with the
@@ -39,16 +48,14 @@ distributions, not the same numbers.
   message serialization copy to the host, so they wait for what came
   before them). The recorder never synchronizes.
 
-Not ported yet: the async merge (``flush_async``, ``adapter_for``,
-``AsyncConfig``, and so the ``async`` state of a checkpoint, which
-``restore`` refuses), populations and samplers, wire codecs and the mesh;
+Not ported yet: populations and samplers, wire codecs and the mesh;
 passing any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +96,14 @@ class ServerConfig:
     codec: str = "none"
 
 
+@dataclass
+class AsyncConfig:
+    """Staleness policy for async merges (FedAsync-style)."""
+    staleness_exp: float = 0.5     # polynomial discount (1+τ)^-exp
+    base_weight: float = 0.25      # mixing rate for fresh updates
+    max_staleness: int = 16        # drop updates older than this
+
+
 def assign_ranks(scfg: ServerConfig, client_sizes, capacities=None,
                  rng=None) -> np.ndarray:
     n = scfg.num_clients
@@ -113,7 +128,7 @@ def _not_ported(**given) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"FedSession({name}=...) is not ported yet: the port runs "
-                f"the synchronous round on one device")
+                f"one device, without populations or wire codecs")
 
 
 class FedSession:
@@ -122,7 +137,7 @@ class FedSession:
                  capacities: Optional[Sequence[float]] = None,
                  engine: Optional[agg_engine.AggregationEngine] = None,
                  strategy=None,
-                 acfg=None,
+                 acfg: Optional[AsyncConfig] = None,
                  track_comm: bool = True,
                  mesh=None,
                  recorder=None,
@@ -133,8 +148,8 @@ class FedSession:
                  device=None):
         """``base_params``: a ``Transformer`` on ``device`` (None = CUDA,
         which must exist)."""
-        _not_ported(acfg=acfg, mesh=mesh, population=population,
-                    sampler=sampler, codec=codec)
+        _not_ported(mesh=mesh, population=population, sampler=sampler,
+                    codec=codec)
         if scfg.codec != "none":
             raise NotImplementedError(
                 f"ServerConfig.codec={scfg.codec!r}: wire codecs are not "
@@ -145,6 +160,7 @@ class FedSession:
                              f"the session on {self.device}")
         self.cfg = cfg
         self.scfg = scfg
+        self.acfg = acfg if acfg is not None else AsyncConfig()
         if strategy is None:
             strategy = scfg.strategy
         self.strategy = (strategy if isinstance(
@@ -171,13 +187,11 @@ class FedSession:
         # scfg.per_target_ranks; None until the first adaptation
         self.target_ranks: Optional[Dict[str, int]] = None
         self.rounds_done = 0
-        self.version = 0
-        # staleness of every async merge; the sync round adds none, a
-        # restored checkpoint may carry the reference's
+        self.version = 0                      # async merge counter
         self.staleness_log: List[int] = []
         self.track_comm = track_comm
         # measured wire bytes, one entry per broadcast_cohort /
-        # collect_updates call
+        # collect_updates / make_update / adapter_for call
         self.comm_log: Dict[str, List[int]] = {"downlink": [], "uplink": []}
         # recorder defaults to the no-op singleton; metrics are always on.
         # Server phases record on "fed.server" (the scheduler puts rounds
@@ -188,6 +202,10 @@ class FedSession:
         self.health_log: List[Dict[str, float]] = []
         self.health_z_threshold: float = 3.0
         self._health_seen: Dict[str, float] = {}
+        # live BufferedAsync state ({heap, pending, buffer}), installed by
+        # the scheduler and serialized by save/restore, so that an async
+        # run can checkpoint mid-flight and resume exactly
+        self.async_state: Optional[dict] = None
 
     def _log_comm(self, direction: str, nbytes: int) -> None:
         """The comm accounting choke point: the per-call ``comm_log`` row,
@@ -309,6 +327,23 @@ class FedSession:
             self._log_comm("downlink", total)
             return self._stack_clients(per_client, heads)
 
+    def adapter_for(self, cid: int) -> Tuple[Dict, int]:
+        """Async client-facing broadcast: the rank-r_k truncation of the
+        current global adapter (``redistribute``: strategy scale and
+        per-target caps included) through a ``Broadcast`` round trip whose
+        downlink bytes are logged, and the server version. The tree is the
+        client's own: no tensor of it is a view of the global adapter."""
+        stacked = self.redistribute(np.array([cid]))
+        sl = {t: {k: v[0] for k, v in ad.items()}
+              for t, ad in stacked.items()}
+        if self.track_comm:
+            wire = msg_lib.Broadcast.from_bytes(
+                self.make_broadcast(cid, sl).to_bytes())
+            self._log_comm("downlink", wire.num_bytes)
+            tree, _head = wire.unpack(self.cfg.lora.r_max, self.device)
+            return tree, self.version
+        return sl, self.version
+
     def make_update(self, cid: int, trained_lora: Dict, start_version: int,
                     head=None, log: bool = True) -> msg_lib.ClientUpdate:
         """One client's trained adapter (and head) as a ``ClientUpdate``,
@@ -391,6 +426,86 @@ class FedSession:
                 self.adapt_ranks()
             self.rounds_done += 1
             self.metrics.counter("fed.rounds").inc()
+
+    def flush_async(self, updates: Sequence) -> List[bool]:
+        """Buffered asynchronous merge: fold K client updates into the
+        global adapter in one engine call. Update u_i gets the weight
+
+            w_i = base_weight · (1+τ_i)^(-staleness_exp) · n_i / n̄
+
+        (τ_i = version − start_version_i at flush time, n̄ the buffer's
+        mean data size), computed in float64 on the host; the global keeps
+        ``max(1 − Σw, 0)`` and the engine normalizes. Updates older than
+        ``max_staleness`` are dropped. The task head is averaged with the
+        same normalized weights. Returns one accepted flag an update.
+
+        ``updates``: objects with .adapter (rank-truncated from the wire, or
+        full-rank with masks), .head (dict, maybe empty), .start_version
+        and .num_examples: ``ClientUpdate``s or ``make_update`` results."""
+        taus = [self.version - int(u.start_version) for u in updates]
+        self.staleness_log.extend(taus)
+        stale_h = self.metrics.histogram("fed.staleness")
+        for tau in taus:
+            stale_h.observe(tau)
+        keep = [i for i, tau in enumerate(taus)
+                if tau <= self.acfg.max_staleness]
+        flags = [i in keep for i in range(len(updates))]
+        self.metrics.counter("fed.updates_merged").inc(len(keep))
+        self.metrics.counter("fed.updates_dropped").inc(
+            len(taus) - len(keep))
+        if not keep:
+            return flags
+        with self.rec.span("flush", "fed.server", merged=len(keep),
+                           version=self.version):
+            return self._flush_merge(updates, taus, keep, flags)
+
+    def _flush_merge(self, updates, taus, keep, flags) -> List[bool]:
+        survivors = [updates[i] for i in keep]
+        n = np.asarray([max(int(u.num_examples), 1) for u in survivors],
+                       np.float64)
+        ws = [float(self.acfg.base_weight
+                    * (1.0 + taus[i]) ** (-self.acfg.staleness_exp)
+                    * (n[j] / n.mean()))
+              for j, i in enumerate(keep)]
+        residual = max(1.0 - sum(ws), 0.0)
+        eta = torch.tensor([residual] + ws, dtype=torch.float32,
+                           device=self.device)
+        adapters = [self._unpack_update_adapter(u) for u in survivors]
+        tree = {t: {leaf: torch.stack([g[leaf]] + [ad[t][leaf]
+                                                   for ad in adapters])
+                    for leaf in ("A", "B", "mask")}
+                for t, g in self.global_lora.items()}
+        new_masks = {t: torch.ones_like(st["mask"][:1])
+                     for t, st in tree.items()}
+        out, spectra = self.engine(tree, eta, self.cfg.lora.alpha,
+                                   **self.strategy.engine_kwargs(),
+                                   new_masks=new_masks)
+        self.global_lora = {t: {k: v[0] for k, v in ad.items()}
+                            for t, ad in out.items()}
+        heads = [u.head for u in survivors]
+        if self.global_head and heads and all(h for h in heads):
+            etan = eta / eta.sum()
+            self.global_head = {
+                k: torch.tensordot(etan, torch.stack(
+                    [g.float()] + [h[k].to(self.device, torch.float32)
+                                   for h in heads]), dims=1).to(g.dtype)
+                for k, g in self.global_head.items()}
+        self.last_spectrum = spectra if self.strategy.has_spectrum else None
+        self.version += len(keep)
+        if self.scfg.rank_policy == "spectrum":
+            self.adapt_ranks()
+        return flags
+
+    def _unpack_update_adapter(self, u) -> Dict:
+        """An update's adapter arrives either full-rank with masks (the
+        legacy direct submit) or rank-truncated from the wire
+        (``ClientUpdate``), which is padded back to r_max on the
+        session's device."""
+        ad = u.adapter
+        first = next(iter(ad.values()))
+        if "mask" in first:
+            return ad
+        return msg_lib.pad_adapter(ad, self.cfg.lora.r_max, self.device)
 
     # -- rank adaptation ----------------------------------------------------
 
@@ -516,10 +631,13 @@ class FedSession:
         ride in the JSON meta, so a restored session replays the same
         cohorts and draws. The default step is rounds_done + version, as in
         the reference (sync rounds advance the one, async flushes the
-        other)."""
+        other). Inside a ``BufferedAsync`` run the live async state rides
+        along (``_pack_async_state``)."""
         tree = {"global_lora": self.global_lora,
                 "global_head": self.global_head,
                 "ranks": np.asarray(self.ranks, np.int32)}
+        if self.async_state is not None:
+            tree["async"] = self._pack_async_state()
         meta = {
             "rounds_done": self.rounds_done,
             "version": self.version,
@@ -533,6 +651,40 @@ class FedSession:
         return store.save(ckpt_dir, self.rounds_done + self.version
                           if step is None else step, tree, meta)
 
+    def _pack_async_state(self) -> dict:
+        """The live ``BufferedAsync`` state for ``save``: the heap in its
+        list order (a valid heap list is its own heapified form, so the
+        restored list pops in the same order) as float64 times and int64
+        client ids and versions, the pending adapters keyed ``%08d``, and
+        the K-buffer's ``ClientUpdate``s as their wire bytes keyed
+        ``%06d``."""
+        st = self.async_state
+        heap = st["heap"]
+        return {
+            "heap": {
+                "t": np.asarray([h[0] for h in heap], np.float64),
+                "cid": np.asarray([h[1] for h in heap], np.int64),
+                "ver": np.asarray([h[2] for h in heap], np.int64)},
+            "pending": {f"{int(cid):08d}": tree
+                        for cid, tree in st["pending"].items()},
+            "buffer": {f"{i:06d}": u.to_bytes()
+                       for i, u in enumerate(st["buffer"])},
+        }
+
+    @staticmethod
+    def _unpack_async_state(packed: dict) -> dict:
+        """Inverse of :meth:`_pack_async_state` on a restored tree (its
+        tensors already on the session's device): the heap as Python
+        (float, int, int) tuples, so that ties break as before."""
+        h = packed["heap"]
+        heap = [(float(t), int(c), int(v)) for t, c, v in zip(
+            h["t"].tolist(), h["cid"].tolist(), h["ver"].tolist())]
+        pending = {int(k): tree
+                   for k, tree in packed.get("pending", {}).items()}
+        buffer = [msg_lib.ClientUpdate.from_bytes(packed["buffer"][k])
+                  for k in sorted(packed.get("buffer", {}))]
+        return {"heap": heap, "pending": pending, "buffer": buffer}
+
     @classmethod
     def restore(cls, ckpt_dir: str, cfg: ModelConfig, scfg: ServerConfig,
                 base_params, step: Optional[int] = None,
@@ -544,14 +696,10 @@ class FedSession:
         persisted, so the next ``adapt_ranks`` takes the split-normalized
         factor-norm fallback of ``_target_spectra`` until the first
         aggregation after the restore. A checkpoint taken inside a
-        ``BufferedAsync`` run (an ``async`` subtree) is refused: the async
-        merge is not ported."""
+        ``BufferedAsync`` run brings back its async state, the pending
+        adapters on the session's device, and the run resumes in place."""
         dev = resolve_device(session_kwargs.get("device"))
         tree, meta = store.restore(ckpt_dir, step, device=dev)
-        if "async" in tree:
-            raise NotImplementedError(
-                "restoring a checkpoint with async state (a mid-flight "
-                "BufferedAsync run) is not ported yet")
         if session_kwargs.get("strategy") is None and meta.get("strategy"):
             session_kwargs["strategy"] = meta["strategy"]
         sess = cls(cfg, scfg, base_params, **session_kwargs)
@@ -568,4 +716,6 @@ class FedSession:
         cl = meta.get("comm_log")
         if cl:
             sess.comm_log = {k: list(v) for k, v in cl.items()}
+        if "async" in tree:
+            sess.async_state = cls._unpack_async_state(tree["async"])
         return sess

@@ -1,19 +1,23 @@
 """End-to-end federated fine-tuning simulation (port of
-``repro/fed/simulation.py`` with the synchronous scheduler).
+``repro/fed/simulation.py``).
 
 A frozen backbone, K clients with Dirichlet non-IID shards of a
 classification task, LoRA local training (adapters and the task head),
-one aggregation strategy per round. ``run_experiment`` stands up the
-data, the cohort trainer and the eval function, then hands control to a
-``SyncRound`` over one :class:`~repro_torch.fed.session.FedSession`. It
-returns the history {round, train_loss, eval_acc, eval_loss,
-downlink_bytes, uplink_bytes, health}.
+one aggregation strategy per merge. ``run_experiment`` stands up the
+data, the trainers and the eval function, then hands control to a
+scheduler over one :class:`~repro_torch.fed.session.FedSession`:
+``SyncRound`` by default, ``SemiSync`` through the same cohort trainer,
+``BufferedAsync`` through the single-client trainer and one client's
+batches an event. It returns the scheduler's history ({round, train_loss,
+eval_acc, eval_loss, downlink_bytes, uplink_bytes, health}, plus
+stragglers and round_time under SemiSync; {time, staleness, accepted,
+flush_events, ...} under BufferedAsync).
 
 The backbone is the caller's (``base_params``, a ``Transformer`` on
 ``device``) or, with ``base_params=None``, ``pretrain_backbone``'s: every
 weight (W0, norms, embedding, head, and the LoRA factors and masks)
 trained by AdamW on the synthetic qqp stand-in, as in the reference, then
-frozen. ``BufferedAsync`` and ``SemiSync`` are not ported.
+frozen.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.client import (evaluate, join_adapters,
                                     make_cohort_train, make_local_train,
                                     split_adapters, split_head)
-from repro_torch.fed.schedulers import Scheduler, SyncRound
+from repro_torch.fed.schedulers import BufferedAsync, Scheduler, SyncRound
 from repro_torch.fed.session import FedSession, ServerConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import Transformer
@@ -207,20 +211,24 @@ def run_experiment(
     track_comm: bool = True,
     device=None,
 ) -> Dict[str, List[float]]:
-    """One federated experiment = one FedSession + one ``SyncRound`` on
+    """One federated experiment = one FedSession + one Scheduler on
     ``device`` (None = CUDA). ``strategy`` (an AggregationStrategy or
-    name) defaults to ``scfg.strategy``; ``track_comm=False`` skips the
-    wire round trip (the history's byte columns become 0)."""
-    sched = scheduler if scheduler is not None else SyncRound()
-    if not isinstance(sched, SyncRound):
-        raise NotImplementedError(
-            f"scheduler {type(sched).__name__}: only SyncRound is ported "
-            f"(SemiSync and BufferedAsync are not yet)")
-    (session_kwargs, cohort_train, _local_train, data_fn, _client_data_fn,
+    name) defaults to ``scfg.strategy``; ``scheduler`` defaults to
+    ``SyncRound()``; ``track_comm=False`` skips the wire round trip (the
+    history's byte columns become 0). Under ``BufferedAsync`` one round
+    counts as ``clients_per_round`` events: ``sim.rounds`` x that many
+    events, evaluated every ``eval_every`` x that many."""
+    (session_kwargs, cohort_train, local_train, data_fn, client_data_fn,
      eval_fn) = make_experiment_setup(cfg, sim, scfg, base_params, device)
     session = FedSession(cfg, scfg, engine=engine, strategy=strategy,
                          track_comm=track_comm, device=device,
                          **session_kwargs)
+    sched = scheduler if scheduler is not None else SyncRound()
+    if isinstance(sched, BufferedAsync):
+        return sched.run(session, local_train, client_data_fn,
+                         num_events=sim.rounds * scfg.clients_per_round,
+                         eval_fn=eval_fn,
+                         eval_every=eval_every * scfg.clients_per_round)
     return sched.run(session, cohort_train, data_fn, sim.rounds,
                      eval_fn=eval_fn, eval_every=eval_every)
 

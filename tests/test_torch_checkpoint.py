@@ -475,21 +475,40 @@ def test_restored_session_spectrum_fallback(weights, tmp_path):
 
 def test_restore_refuses_async_state(weights, tmp_path):
     """A checkpoint taken inside a BufferedAsync run carries an ``async``
-    subtree (heap, pending adapters, the K-buffer's wire bytes): restoring
-    it raises, never drops it."""
+    subtree (heap, pending adapters, the K-buffer's wire bytes): the async
+    merge is ported, so restoring it brings that state back, never drops
+    it: the heap as Python (float, int, int) tuples in its list order, the
+    pending adapters on the session's device, the buffer's updates with
+    the same bytes; the step before it has no async state."""
     setup = _port_setup(weights, SERVER)
     d = str(tmp_path / "fed")
-    _port_session(weights, setup).save(d)
+    sess = _port_session(weights, setup)
+    sess.save(d)
     tree, meta = t_store.restore(d, device="cpu")
+    pending = {cid: sess.adapter_for(cid)[0] for cid in (1, 0)}
+    upd = sess.make_update(1, pending[1], 0, head=sess.global_head)
     tree["async"] = {
         "heap": {"t": np.array([0.5, 1.0]), "cid": np.array([1, 0]),
                  "ver": np.array([0, 0])},
-        "buffer": {"000000": b"\x00\x01update"}}
+        "pending": {f"{cid:08d}": ad for cid, ad in pending.items()},
+        "buffer": {"000000": upd.to_bytes()}}
     meta.pop("step")
     t_store.save(d, 1, tree, meta)
-    with pytest.raises(NotImplementedError, match="async"):
-        _port_restore(weights, setup, d)
-    _port_restore(weights, setup, d, step=0)           # the sync one: fine
+    back = _port_restore(weights, setup, d)
+    st = back.async_state
+    assert st["heap"] == [(0.5, 1, 0), (1.0, 0, 0)]
+    assert all(type(x) is float and type(c) is int and type(v) is int
+               for x, c, v in st["heap"])
+    assert sorted(st["pending"]) == [0, 1]
+    for cid, ad in pending.items():
+        for t in ad:
+            for leaf in ("A", "B", "mask"):
+                got = st["pending"][cid][t][leaf]
+                assert got.device.type == "cpu"
+                assert torch.equal(got, ad[t][leaf]), (cid, t, leaf)
+    assert [u.to_bytes() for u in st["buffer"]] == [upd.to_bytes()]
+    assert st["buffer"][0].client_id == 1
+    assert _port_restore(weights, setup, d, step=0).async_state is None
 
 
 def test_restored_staleness_log_feeds_health(weights, tmp_path):

@@ -78,7 +78,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "kernels/recon_agg.py", "core/svd.py", "core/aggregate.py",
                 "core/agg_engine.py", "core/seeds.py", "core/rank.py",
                 "fed/strategies.py", "fed/messages.py", "fed/session.py",
-                "fed/schedulers.py", "util.py", "checkpoint/store.py",
+                "fed/schedulers.py", "fed/server.py", "fed/async_server.py",
+                "util.py", "checkpoint/store.py",
                 "launch/train.py", "obs/recorder.py", "obs/export.py",
                 "obs/timeseries.py", "obs/slo.py", "obs/collect.py",
                 "obs/report.py"):

@@ -456,6 +456,15 @@ class _Stub:
 @pytest.mark.parametrize("kw", ["acfg", "mesh", "population", "sampler",
                                 "codec"])
 def test_session_refuses_what_is_not_ported(weights, kw):
+    """What is not ported raises; ``acfg`` (the async staleness policy) is
+    ported: it is taken and kept, and the session has no async state until
+    a ``BufferedAsync`` run installs it."""
+    if kw == "acfg":
+        acfg = t_session.AsyncConfig(max_staleness=3, base_weight=0.5)
+        sess = _session(weights, acfg=acfg)
+        assert sess.acfg is acfg and sess.async_state is None
+        assert _session(weights).acfg == t_session.AsyncConfig()
+        return
     with pytest.raises(NotImplementedError, match=kw):
         _session(weights, **{kw: _Stub()})
 
@@ -491,11 +500,15 @@ def test_round_refusals(weights):
                              tparams, device="cpu")
     with pytest.raises(NotImplementedError, match="topology"):
         t_sched.SyncRound(topology=_Stub())
-    with pytest.raises(NotImplementedError, match="BufferedAsync"):
-        t_sim.run_experiment(cfg, t_sim.SimConfig(), scfg,
-                             base_params=tparams,
-                             scheduler=j_sched.BufferedAsync(),
-                             device="cpu")
+    # BufferedAsync is ported: one round of 3 clients is 3 events, merged
+    # two at a time and the last drained
+    hist = t_sim.run_experiment(
+        cfg, t_sim.SimConfig(**dict(SIM, rounds=1)), scfg,
+        base_params=tparams, scheduler=t_sched.BufferedAsync(
+            speeds=np.ones(SERVER["num_clients"]), buffer_size=2),
+        device="cpu")
+    assert hist["flush_events"] == [2, 1]
+    assert all(b > 0 for b in hist["uplink_bytes"])
     with pytest.raises(ValueError, match="base params"):
         t_session.FedSession(cfg, scfg, copy.copy(tparams).to_device("meta"),
                              device="cpu")
