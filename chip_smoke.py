@@ -36,9 +36,9 @@ Phases, each of which raises on failure:
    through the plain version, and every other rank variant built (R 13,
    29, 64) forward and backward;
    recon_agg (float32) batched at the server's shapes on RoBERTa-large
-   (48 items, Kc 4, 5 (an async flush of 4 updates and the global) and
-   20, d 1024, R 8), ragged, at rank 16 and in the single-item form, with
-   the same bits on a second call;
+   (48 items, Kc 2 (a two-edge root merge), 4, 5 (an async flush of 4
+   updates and the global) and 20, d 1024, R 8), ragged, at rank 16 and in
+   the single-item form, with the same bits on a second call;
 4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
    weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
@@ -160,7 +160,23 @@ Phases, each of which raises on failure:
    checkpoint: 4 events, ``save``, ``FedSession.restore``, 3 events
    against 7 straight, integers equal and floats bit for bit; wall time,
    peak memory, p50 time a round and an event;
-13. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+13. population-scale federation on phase 6's base (rebuilt from its seed):
+   (a) ``examples/fed_finetune_torch.py``'s ``run_population``: 10,000
+   synthetic clients, a cohort of 8 drawn by the rank-stratified sampler,
+   2 edges in 'stack' mode, int8 on the wire, 2 rounds: at most the cohort
+   resident, 16 shards built, every rank bucket in every cohort, finite
+   losses, each edge's row the bytes of its ``EdgeAggregate`` (its header
+   and its clients' int8 updates), 48 of each lora kernel a client step and
+   nothing else; (b) one cohort of 8 trained once and merged on sessions of
+   the same seed: 'stack' against the flat round bit for bit, 'engine'
+   under naive against flat naive (the reference test's tolerance) with
+   fewer edge-to-root bytes, 'engine' under hlora ``randomized`` with
+   recon_agg at Kc 4 at each edge and Kc 2 at the root, each merge against
+   float64 Eq. 2-3 (phase 7's (c) and (d)); (c) the cohort's updates and a
+   round-0 broadcast under bf16, int8, topk:4 and topk:8, the same bytes on
+   the card as on the CPU, decoded on the card within each codec's bound;
+   each part's wall time, a round's p50, peak memory;
+14. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -1166,9 +1182,10 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
 
 def check_recon_agg(torch, ops, recon_mod, gen) -> dict:
     """recon_agg at the server's shapes on RoBERTa-large (48 items: q and v
-    x 24 layers, d 1024, r_max 8) with phase 6's cohort (Kc 4, the main
-    path's shape, whose row this returns), phase 12's flush of 4 updates
-    into the global (Kc 5) and bench_server.py's (Kc 20);
+    x 24 layers, d 1024, r_max 8) with phase 13's root merge of two edge
+    aggregates (Kc 2), phase 6's cohort (Kc 4, the main path's shape, whose
+    row this returns; phase 13's edge merges), phase 12's flush of 4
+    updates into the global (Kc 5) and bench_server.py's (Kc 20);
     then ragged, in the single-item form and at rank 16. Every output is
     held to the plain version to 1e-5 of its largest value: float32 sums
     of Kc·R products in another order."""
@@ -1184,7 +1201,7 @@ def check_recon_agg(torch, ops, recon_mod, gen) -> dict:
         eta = torch.rand(bt, kc, generator=gen, device="cuda") + 0.5
         return a, b, eta
 
-    for kc in (4, 5, 20):
+    for kc in (4, 5, 20, 2):
         a, b, eta = inputs(48, kc, 1024, 8, 1024)
         got = ops.recon_agg(a, b, eta)
         err = compare_scaled(f"batched (48, {kc}, 1024, 8) -> 1024", got,
@@ -3832,11 +3849,12 @@ def host_heap(speeds, events, buffer, max_staleness):
     return order, stale
 
 
-def flush_truth(torch, alpha, stack, etan):
+def flush_truth(torch, alpha, stack, etan, ranks=None):
     """Eq. 2-3 of a flush in float64, target by target: ``stack`` is
     {target: [(A, B, mask) of the global, then of each update]}, ``etan``
     the normalized float64 weights. Returns {target: (dW' (L, d, d), its
-    singular values, its rank-r_max truncation (L, 1, d, d))}."""
+    singular values, its rank-r truncation (L, len(ranks), d, d) at each of
+    ``ranks``, r_max alone by default)}."""
     out = {}
     for t, items in stack.items():
         a = torch.stack([x[0] for x in items]).double()      # (K, L, d, r)
@@ -3848,7 +3866,7 @@ def flush_truth(torch, alpha, stack, etan):
         a = (a * (m * coef[..., None])[..., None, :]).permute(
             1, 2, 0, 3).reshape(n_l, d_in, k * r)
         b = (b * m[..., :, None]).permute(1, 0, 2, 3).reshape(n_l, k * r, -1)
-        out[t] = float64_truncations(torch, a, b, [r])
+        out[t] = float64_truncations(torch, a, b, ranks or [r])
     return out
 
 
@@ -4346,6 +4364,487 @@ def run_async_rounds(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: population-scale federation on full-width RoBERTa-large
+# ---------------------------------------------------------------------------
+
+FED_EXAMPLE = os.path.join(ROOT, "examples", "fed_finetune_torch.py")
+# (a) the example's population path: 10,000 synthetic clients, a cohort of 8
+#     (sample rate 0.0008, so that each of the 7 rank buckets 2..8 has a
+#     member), the rank-stratified sampler, 2 edges in 'stack' mode, int8 on
+#     the wire, 2 sync rounds at the example's settings (8 local steps of
+#     16 x 32 tokens, lr 1e-3), on phase 6's base (no pretraining step)
+POP_ARGS = ["--population", "10000", "--sample-rate", "0.0008", "--edges",
+            "2", "--codec", "int8", "--rounds", "2", "--task", "mrpc"]
+# (b) one cohort of 8 of phase 8's 16 clients trained once, its stack merged
+#     through the three paths on sessions of the same seed. 'engine' mode
+#     under naive against the flat naive round at the reference test's
+#     tolerance (tests/test_population.py: the nested weighted mean is the
+#     flat one up to float32 rounding): dW' per element rtol 1e-4, atol 1e-5;
+#     heads rtol 1e-5, atol 1e-6
+POP_COHORT = 8
+POP_DW_TOL = (1e-4, 1e-5)
+POP_HEAD_TOL = (1e-5, 1e-6)
+# (c) each codec on the card against the CPU, from the same tensors
+POP_CODECS = ("bf16", "int8", "topk:4", "topk:8")
+
+
+def _fed_example():
+    """``examples/fed_finetune_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("fed_finetune_torch",
+                                                  FED_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lora_launches(cfg, steps: int) -> dict:
+    per_step = 2 * cfg.num_layers
+    return {"lora_matmul": per_step * steps,
+            "lora_matmul_dx": per_step * steps,
+            "lora_matmul_grad_ab": per_step * steps}
+
+
+def _counted(torch, ops) -> dict:
+    torch.cuda.synchronize()
+    return {k: v for k, v in ops.LAUNCHES.items() if v}
+
+
+def population_path(torch, np, cfg, base) -> dict:
+    """(a) ``run_population`` of the example, its ``FedSession`` and
+    ``EdgeAggregate`` recorded: the residency counters, every cohort over
+    every rank bucket, finite losses, each ``edge<i>_uplink`` row the bytes
+    of its ``EdgeAggregate`` (4 + its header + its clients' int8 update
+    bytes), the history's uplink the clients' bytes, the launches (48 of
+    each lora kernel a client step, nothing else). Returns the launches and
+    the rounds' wall times."""
+    from repro_torch.fed import FedSession
+    from repro_torch.fed import messages as msg_lib
+    from repro_torch.kernels import ops
+
+    example = _fed_example()
+    args = example.parse_args(POP_ARGS)
+    sim = example.sim_config(args)
+    rounds, sent = [], []
+
+    class Session(FedSession):
+        def sample_cohort(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cohort = super().sample_cohort()
+            rounds.append({"t0": t0, "cohort": [int(c) for c in cohort]})
+            return cohort
+
+        def aggregate_round(self, *a, **kw):
+            super().aggregate_round(*a, **kw)
+            torch.cuda.synchronize()
+            rounds[-1]["wall"] = time.perf_counter() - rounds[-1]["t0"]
+
+    class Edge(msg_lib.EdgeAggregate):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if self._raw is None:             # the sender's, not a decode
+                sent.append((len(rounds) - 1, self))
+
+    example.FedSession = Session
+    edge_cls = msg_lib.EdgeAggregate
+    msg_lib.EdgeAggregate = Edge
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist, session = example.run_population(cfg, sim, args,
+                                               base_params=base)
+        got = _counted(torch, ops)
+        wall = time.perf_counter() - t0
+    finally:
+        msg_lib.EdgeAggregate = edge_cls
+    pop = session.population
+    cohort = session.scfg.clients_per_round
+    want = _lora_launches(cfg, args.rounds * cohort * sim.local_steps)
+    buckets = set(range(2, 9))
+    covered = all(set(int(r) for r in pop.ranks[np.asarray(r["cohort"])])
+                  == buckets for r in rounds)
+    ok = (cohort == POP_COHORT and pop.max_resident == cohort
+          and pop.materialized_total == args.rounds * cohort
+          and pop.resident() == 0 and session.metrics.counter(
+              "fed.population.materialized").value == 2 * cohort
+          and covered and len(rounds) == args.rounds
+          and all(math.isfinite(v) for v in hist["train_loss"])
+          and got == want)
+    log(f"  (a) run_population: {pop.size} clients, cohort {cohort}, "
+        f"{args.rounds} rounds in {wall:.1f} s; cohorts "
+        f"{[r['cohort'] for r in rounds]} (ranks "
+        f"{[[int(pop.ranks[c]) for c in r['cohort']] for r in rounds]}, "
+        f"every bucket 2..8 {covered}); train loss "
+        f"{[round(v, 5) for v in hist['train_loss']]}; materialized "
+        f"{pop.materialized_total}, max resident {pop.max_resident}; "
+        f"launches {got} (expect {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) run_population: launches {got}, history "
+                             f"{hist}")
+    # each edge message: its row, its header and its clients' bytes
+    lines = []
+    for i in range(args.rounds):
+        mine = [agg for rnd, agg in sent if rnd == i]
+        clients = 0
+        for agg in mine:
+            raw = agg.to_bytes()
+            hlen = int.from_bytes(raw[:4], "little")
+            ups = [u.num_bytes for u in agg.updates]
+            codecs = {msg_lib.unpack_wire(u.to_bytes())[1].get("codec")
+                      for u in agg.updates}
+            row = session.comm_log[f"edge{agg.edge_id}_uplink"][i]
+            clients += sum(ups)
+            if not (row == agg.num_bytes == len(raw) == 4 + hlen + sum(ups)
+                    and codecs == {"int8"}):
+                raise AssertionError(
+                    f"(a) round {i} edge {agg.edge_id}: row {row}, message "
+                    f"{agg.num_bytes}, header {hlen}, clients {ups}, codecs "
+                    f"{codecs}")
+            lines.append(f"round {i} edge {agg.edge_id}: {row} = 4 + "
+                         f"{hlen} + {ups}")
+        if len(mine) != 2 or hist["uplink_bytes"][i] != clients:
+            raise AssertionError(f"(a) round {i}: {len(mine)} edge messages, "
+                                 f"uplink {hist['uplink_bytes'][i]} against "
+                                 f"the clients' {clients}")
+    log(f"  (a) each edge<i>_uplink = 4 + header + its clients' int8 "
+        f"updates, the uplink their sum: " + "; ".join(lines)
+        + f"; downlink {hist['downlink_bytes']} ok")
+    return {"launches": got, "walls": [r["wall"] for r in rounds]}
+
+
+def hold_merge(torch, label, truth, lora, alpha, ranks) -> None:
+    """A merge's new adapter (rank r_max, its directions in the SVD's
+    order, every mask 1) against ``flush_truth`` at each of ``ranks``: its
+    leading r directions, (alpha / r_max) A[..., :r] B[..., :r, :], against
+    the rank-r truncation of dW' in float64 by phase 7's (c) and (d)
+    limits. Every rank, not r_max alone: a stack with no client of rank
+    r_max leaves the r_max-th direction near noise, where (d) has no gap to
+    hold at."""
+    for t, (dw, sig, trunc) in sorted(truth.items()):
+        a, b = lora[t]["A"].double(), lora[t]["B"].double()
+        r_max = a.shape[-1]
+        if not bool((lora[t]["mask"] == 1).all()):
+            raise AssertionError(f"{label} {t}: the merge's masks are not 1")
+        upd = torch.stack([(alpha / r_max) * a[..., :r] @ b[..., :r, :]
+                           for r in ranks], 1)
+        hold_eckart_young(torch, f"{label} {t}", dw, sig, upd, ranks)
+        hold_updates(torch, f"{label} {t}", upd, trunc, sig, ranks)
+        del upd
+
+
+def _allclose_worst(torch, got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 is allclose."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def aggregation_paths(torch, np, cfg, base) -> dict:
+    """(b) one cohort of 8 trained once (48 launches of each lora kernel a
+    step), then merged on sessions of the same seed: 'stack' against the
+    flat round (factors, head, uplink row bit for bit); 'engine' under
+    naive against flat naive (``POP_DW_TOL``, ``POP_HEAD_TOL``), its
+    edge-to-root bytes below the flat uplink; 'engine' under hlora
+    ``randomized``: 3 recon_agg launches (2 edges at Kc 4, the root at Kc
+    2), each edge's merge against float64 Eq. 2-3 of its stack and the
+    root's against float64 of the edge aggregates (phase 7's (c), (d)).
+    Returns the launches, the cohort, the trained stack and the round-0
+    broadcast for (c)."""
+    from repro_torch.core import agg_engine
+    from repro_torch.core.lora import delta_w
+    from repro_torch.fed import (FedSession, HierarchicalTopology,
+                                 ServerConfig, SimConfig, join_adapters,
+                                 make_experiment_setup, split_adapters)
+    from repro_torch.kernels import ops
+
+    alpha = cfg.lora.alpha
+    scfg = ServerConfig(**dict(ROUND_SERVER, clients_per_round=POP_COHORT),
+                        strategy="hlora", svd_method="factored",
+                        rank_policy="random")
+    kw, train, _, data_fn, _, _ = make_experiment_setup(
+        cfg, SimConfig(rounds=1), scfg, base)
+    s0 = FedSession(cfg, scfg, **kw)
+    cohort = s0.sample_cohort()
+    stacked, heads = s0.broadcast_cohort(cohort)
+    factors, masks = split_adapters(stacked)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trainable, losses = train(s0.base, {"factors": factors, "head": heads},
+                              masks, data_fn(cohort, 0))
+    got = _counted(torch, ops)
+    t_train = time.perf_counter() - t0
+    steps = POP_COHORT * SimConfig().local_steps
+    want = _lora_launches(cfg, steps)
+    trained = join_adapters(trainable["factors"], masks)
+    theads = trainable["head"]
+    ok = got == want and bool(torch.isfinite(losses).all())
+    log(f"  (b) one cohort {[int(c) for c in cohort]} (ranks "
+        f"{[int(s0.ranks[c]) for c in cohort]}) trained: {steps} client "
+        f"steps in {t_train:.1f} s, launches {got} (expect {want}), losses "
+        f"finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(b) training: launches {got}")
+    launches = dict(got)
+
+    def fresh(**over):
+        s = FedSession(cfg, ServerConfig(**{**vars(scfg), **over}), **kw)
+        c = s.sample_cohort()
+        if not np.array_equal(c, cohort):
+            raise AssertionError(f"(b) cohort {c} against {cohort}")
+        return s
+
+    def merge(label, session, topo, expect):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        if topo is None:
+            tree, up = session.collect_updates(cohort, trained, theads)
+            session.aggregate_round(tree, cohort, stacked_heads=up)
+        else:
+            topo.aggregate(session, cohort, trained, theads)
+        n = _counted(torch, ops)
+        ms = (time.perf_counter() - t) * 1e3
+        if n != expect:
+            raise AssertionError(f"(b) {label}: launches {n}, expect "
+                                 f"{expect}")
+        return ms
+
+    # stack against flat, hlora factored: bit for bit
+    flat, stack = fresh(), fresh()
+    ms_flat = merge("flat", flat, None, {})
+    ms_stack = merge("stack", stack, HierarchicalTopology(2), {})
+    differ = _factor_bits_equal(torch, stack.global_lora, flat.global_lora)
+    differ += [f"head {k}" for k in _factor_bits_equal(
+        torch, stack.global_head, flat.global_head)]
+    edge_rows = [stack.comm_log[f"edge{e}_uplink"][0] for e in range(2)]
+    headers = sum(edge_rows) - flat.comm_log["uplink"][0]
+    ok = (not differ and stack.comm_log["uplink"] == flat.comm_log["uplink"]
+          and 0 < headers < 4096)
+    log(f"  (b) 'stack' (2 edges) against the flat round, hlora factored: "
+        f"global factors and head "
+        f"{'bit for bit' if not differ else f'DIFFER in {differ}'}; uplink "
+        f"{stack.comm_log['uplink']} (flat {flat.comm_log['uplink']}), edge "
+        f"rows {edge_rows} (their headers {headers} bytes); {ms_stack:.1f} "
+        f"ms against {ms_flat:.1f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(b) stack mode differs from the flat round")
+
+    # engine under naive against flat naive
+    flat, eng = fresh(strategy="naive"), fresh(strategy="naive")
+    merge("flat naive", flat, None, {})
+    ms_eng = merge("engine naive", eng,
+                   HierarchicalTopology(2, edge_mode="engine"), {})
+    dw = max(_allclose_worst(torch, delta_w(eng.global_lora[t], alpha),
+                             delta_w(flat.global_lora[t], alpha),
+                             *POP_DW_TOL) for t in flat.global_lora)
+    hd = max(_allclose_worst(torch, eng.global_head[k], flat.global_head[k],
+                             *POP_HEAD_TOL) for k in flat.global_head)
+    edge_bytes = sum(eng.comm_log[f"edge{e}_uplink"][0] for e in range(2))
+    ok = dw <= 1.0 and hd <= 1.0 and edge_bytes < flat.comm_log["uplink"][0]
+    log(f"  (b) 'engine' under naive against flat naive: dW' worst "
+        f"err/limit {dw:.3e} (rtol {POP_DW_TOL[0]:.0e}, atol "
+        f"{POP_DW_TOL[1]:.0e}), heads {hd:.3e} (rtol {POP_HEAD_TOL[0]:.0e}, "
+        f"atol {POP_HEAD_TOL[1]:.0e}); edge-to-root {edge_bytes} bytes "
+        f"against the flat uplink {flat.comm_log['uplink'][0]}; {ms_eng:.1f} "
+        f"ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(b) engine mode under naive differs")
+
+    # engine under hlora randomized: the engine's calls recorded
+    eng = fresh(svd_method="randomized")
+    calls, shapes = [], []
+    engine, launch = eng.engine, ops.recon_agg
+
+    def recorded_engine(tree, eta, alpha_, **kw2):
+        out = engine(tree, eta, alpha_, **kw2)
+        calls.append((tree, out[0]))
+        return out
+
+    def recorded(a, b, eta):
+        shapes.append(tuple(a.shape))
+        return launch(a, b, eta)
+
+    eng.engine = recorded_engine
+    agg_engine.ops.recon_agg = recorded
+    topo = HierarchicalTopology(2, edge_mode="engine")
+    try:
+        ms_rand = merge("engine randomized", eng, topo, {"recon_agg": 3})
+    finally:
+        agg_engine.ops.recon_agg = launch
+    items = 2 * cfg.num_layers
+    want_shapes = [(items, 4, cfg.d_model, cfg.lora.r_max)] * 2 + [
+        (items, 2, cfg.d_model, cfg.lora.r_max)]
+    log(f"  (b) 'engine' under hlora randomized: {ms_rand:.1f} ms, recon_agg "
+        f"launched 3 times at {shapes} (expect {want_shapes}) "
+        f"{'ok' if shapes == want_shapes else 'FAIL'}")
+    if shapes != want_shapes or len(calls) != 3:
+        raise AssertionError(f"(b) randomized: shapes {shapes}, "
+                             f"{len(calls)} engine calls")
+    launches["recon_agg"] = 3
+    groups = topo.assign(cohort)
+    sizes = [eng.client_sizes[cohort[pos]].astype(np.float64)
+             for pos in groups]
+    weights = [n / n.sum() for n in sizes] + [
+        np.asarray([n.sum() for n in sizes]) / sum(n.sum() for n in sizes)]
+    labels = [f"edge {e}" for e in range(2)] + ["root"]
+    for (tree, out), w, label in zip(calls, weights, labels):
+        stack = {t: [(ad["A"][k], ad["B"][k], ad["mask"][k])
+                     for k in range(len(w))] for t, ad in tree.items()}
+        ranks = [int(tree[t]["mask"][k].reshape(-1, cfg.lora.r_max)[0].sum())
+                 for t in list(tree)[:1] for k in range(len(w))]
+        where = f"(b) randomized {label} (ranks {ranks})"
+        if sum(ranks) > cfg.lora.r_max + AGG_OVERSAMPLE:
+            where += (f", summing past r_max + oversample: outside "
+                      f"svd_randomized's contract")
+        ranks = list(range(1, cfg.lora.r_max + 1))
+        truth = flush_truth(torch, alpha, stack, torch.tensor(
+            w, dtype=torch.float64, device="cuda"), ranks)
+        lora = {t: {k: v[0] for k, v in ad.items()} for t, ad in out.items()}
+        hold_merge(torch, f"{where}, against float64", truth, lora, alpha,
+                   ranks)
+        del truth
+    return {"launches": launches, "cohort": cohort, "trained": trained,
+            "heads": theads, "broadcast": stacked, "session": s0}
+
+
+def codecs_card_against_cpu(torch, np, paths) -> None:
+    """(c) the cohort's 8 updates and its first client's round-0 broadcast
+    (B = 0: every topk score ties at 0) encoded with each of ``POP_CODECS``
+    on the card and on the CPU from the same tensors: the same bytes; then
+    decoded on the card: int8 within scale/2 of each element (plus float32
+    rounding of the quotient and the product, 2^-22 max|a|), bf16 within
+    2^-8 relative, topk:8 (k >= r_max) the raw factors bit for bit, topk:4
+    the kept directions exact and the others zero; the decode of the bytes
+    on the host equal to it, bit for bit."""
+    from repro_torch.fed import compress
+    from repro_torch.fed import messages as msg_lib
+
+    s0, cohort = paths["session"], paths["cohort"]
+    r_max = s0.cfg.lora.r_max
+    msgs = []
+    for i, cid in enumerate(cohort):
+        sl = {t: {leaf: ad[leaf][i] for leaf in ("A", "B", "mask")}
+              for t, ad in paths["trained"].items()}
+        ranks = {t: int(ad["mask"].reshape(-1, r_max)[0].sum())
+                 for t, ad in sl.items()}
+        msgs.append((msg_lib.ClientUpdate, dict(
+            client_id=int(cid), start_version=0,
+            num_examples=int(s0.client_sizes[cid])),
+            msg_lib.truncate_adapter(sl, ranks),
+            {k: v[i] for k, v in paths["heads"].items()}))
+    cid = int(cohort[0])
+    sl = {t: {"A": ad["A"][0], "B": ad["B"][0]}
+          for t, ad in paths["broadcast"].items()}
+    msgs.append((msg_lib.Broadcast, dict(version=0, client_id=cid),
+                 msg_lib.truncate_adapter(sl, s0._client_ranks(cid)),
+                 dict(s0.global_head)))
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    raw = sum(cls(**kw, adapter=ad, head=hd).num_bytes
+              for cls, kw, ad, hd in msgs)
+    sizes = []
+    t0 = time.perf_counter()
+    for spec in POP_CODECS:
+        codec = compress.from_name(spec)
+        total = 0
+        worst = 0.0
+        for cls, kw, ad, hd in msgs:
+            card = cls(**kw, adapter=ad, head=hd, codec=codec).to_bytes()
+            cpu = cls(**kw, adapter=host(ad), head=host(hd),
+                      codec=codec).to_bytes()
+            if card != cpu:
+                raise AssertionError(f"(c) {spec}: {cls.__name__} to client "
+                                     f"{kw['client_id']} differs on the "
+                                     f"card from the CPU")
+            total += len(card)
+            arrays, meta = codec.encode_adapter(ad)
+            dec = codec.decode_adapter(arrays, meta)
+            back = cls.from_bytes(card).adapter
+            for t, x in ad.items():
+                for leaf in ("A", "B"):
+                    a, d = x[leaf], dec[t][leaf]
+                    if d.device.type != "cuda" or not torch.equal(
+                            _bits(torch, d), _bits(torch, back[t][leaf])):
+                        raise AssertionError(f"(c) {spec} {t}/{leaf}: the "
+                                             f"card's decode differs from "
+                                             f"the host's")
+                    err = (d - a).abs()
+                    if spec == "int8":
+                        lim = meta[t][f"{leaf}_scale"] / 2 \
+                            + 2.0 ** -22 * float(a.abs().max())
+                        bad = float(err.max()) > lim
+                        worst = max(worst, float(err.max()) / lim)
+                    elif spec == "bf16":
+                        bad = bool((err > 2.0 ** -8 * a.abs()).any())
+                    elif spec == "topk:8":
+                        bad = not torch.equal(d, a)
+                    else:
+                        keep = meta[t]["keep"]
+                        dim = -1 if leaf == "A" else -2
+                        drop = [j for j in range(a.shape[dim])
+                                if j not in keep]
+                        kept = d.index_select(dim, torch.tensor(
+                            keep, device=d.device))
+                        bad = not torch.equal(kept, a.index_select(
+                            dim, torch.tensor(keep, device=a.device))) \
+                            or bool(d.index_select(dim, torch.tensor(
+                                drop, device=d.device, dtype=torch.long)
+                            ).any()) or len(keep) != min(4, a.shape[dim])
+                        if cls is msg_lib.Broadcast and keep != list(
+                                range(len(keep))):
+                            bad = True          # the all-zero tie
+                    if bad:
+                        raise AssertionError(f"(c) {spec}: {cls.__name__} "
+                                             f"{kw['client_id']} {t}/{leaf} "
+                                             f"decodes out of bounds")
+        sizes.append(f"{spec} {total} ({total / raw:.3f} of raw)"
+                     + (f", worst err/limit {worst:.4f}"
+                        if spec == "int8" else ""))
+    log(f"  (c) {len(msgs) - 1} updates and a round-0 broadcast, each codec "
+        f"on the card and the CPU: the same bytes; decoded on the card "
+        f"within bounds and equal to the host's decode; {len(msgs)} messages "
+        f"{raw} bytes raw, " + ", ".join(sizes)
+        + f" ({time.perf_counter() - t0:.1f} s) ok")
+
+
+def run_population_phase(torch, np) -> dict:
+    """Phase 13 on phase 6's base (the same seed): (a)
+    ``population_path``, (b) ``aggregation_paths``, (c)
+    ``codecs_card_against_cpu``; the wall time of each part, a round's
+    p50 and the peak memory. Returns the launches of (a) and (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("roberta-large")
+    t0 = time.perf_counter()
+    base = model_lib.init_params(cfg, seed=0, device="cpu").to_device("cuda")
+    log(f"  phase 6's base rebuilt from its seed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pop = population_path(torch, np, cfg, base)
+    t1 = time.perf_counter()
+    paths = aggregation_paths(torch, np, cfg, base)
+    t2 = time.perf_counter()
+    codecs_card_against_cpu(torch, np, paths)
+    t3 = time.perf_counter()
+    launches = dict(pop["launches"])
+    for k, v in paths["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase 13 parts: (a) {t1 - t0:.1f} s (a round's wall p50 "
+        f"{np.median(pop['walls']):.3f} s over {len(pop['walls'])}: "
+        f"{[round(w, 3) for w in pop['walls']]}), (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s; peak memory {peak:.2f} GiB; {device_line()}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4459,6 +4958,16 @@ def main() -> int:
     for name, n in run_async_rounds(torch, np).items():
         launches[name] += n
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[13] population-scale federation: full-width roberta-large")
+    t0 = time.perf_counter()
+    # a seventh counted path for the lora kernels and a fifth for recon_agg:
+    # the example's population rounds, the trained cohort and its
+    # randomized two-tier merge (Kc 4 at each edge, Kc 2 at the root)
+    for name, n in run_population_phase(torch, np).items():
+        launches[name] += n
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

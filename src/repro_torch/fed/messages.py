@@ -1,6 +1,6 @@
-"""Wire-level federated messages: ``Broadcast`` and ``ClientUpdate`` with
-their serialized size measured, not estimated (port of the raw format of
-``repro/fed/messages.py``; the same arrays give the same bytes).
+"""Wire-level federated messages: ``Broadcast``, ``ClientUpdate`` and
+``EdgeAggregate`` with their serialized size measured, not estimated (port
+of ``repro/fed/messages.py``; the same arrays give the same bytes).
 
 Wire layout (version ``_WIRE_VERSION``)::
 
@@ -20,22 +20,26 @@ direction ≥ r_k is exactly zero, and client gradients cannot flow into
 masked directions; slicing ``A[..., :r]`` / ``B[..., :r, :]`` and
 zero-padding back rebuilds the full-rank factors.
 
-The reference's wire codecs (``fed/compress.py``) and ``EdgeAggregate``
-(two-tier topologies) are not ported: a codec other than ``None`` raises
-``NotImplementedError``, and so does a message whose header names one.
+A message's ``codec`` (``fed/compress.py``) encodes its adapter before
+packing: the encoded tensors cross under ``codec/<target>/<leaf>`` and the
+header carries ``codec`` and ``codec_meta``, so the receiver decodes from
+the header alone; ``codec=None`` is byte-identical to the raw format.
+``EdgeAggregate`` (two-tier topologies, ``fed/topology.py``) carries an
+edge's serialized client updates to the root verbatim.
 """
 from __future__ import annotations
 
 import json
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.fed.compress import WireCodec, decoder_for
 
 _WIRE_VERSION = 1
 _BF16 = "bfloat16"
@@ -157,20 +161,37 @@ def _split_payload(arrays: Dict[str, torch.Tensor]
     return adapter, head
 
 
-def _no_codec(codec) -> None:
-    if codec is not None:
-        raise NotImplementedError(
-            "wire codecs (fed/compress.py) are not ported yet; "
-            "codec must be None")
+def _encode_payload(adapter: AdapterPayload, head: HeadPayload,
+                    codec: Optional[WireCodec]
+                    ) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """Flatten (adapter, head) into wire tensors; with a codec the adapter
+    crosses encoded (under ``codec/``) with a self-describing header entry.
+    ``codec=None`` is byte-identical to the raw format."""
+    if codec is None:
+        return _flatten_payload(adapter, head), {}
+    enc, cmeta = codec.encode_adapter(adapter)
+    arrays = {f"codec/{p}": a for p, a in enc.items()}
+    for k, a in (head or {}).items():
+        arrays[f"head/{k}"] = a
+    return arrays, {"codec": codec.name, "codec_meta": cmeta}
 
 
 def _decode_payload(arrays: Dict[str, torch.Tensor], meta: dict
                     ) -> Tuple[AdapterPayload, HeadPayload]:
-    if "codec" in meta:
-        raise NotImplementedError(
-            f"message encoded with codec {meta['codec']!r}: wire codecs "
-            f"are not ported yet")
-    return _split_payload(arrays)
+    """Inverse of :func:`_encode_payload`, driven by the header alone."""
+    if "codec" not in meta:
+        return _split_payload(arrays)
+    enc: Dict[str, torch.Tensor] = {}
+    head: HeadPayload = {}
+    for path, a in arrays.items():
+        tag, rest = path.split("/", 1)
+        if tag == "codec":
+            enc[rest] = a
+        else:
+            head[rest] = a
+    adapter = decoder_for(meta["codec"]).decode_adapter(
+        enc, meta["codec_meta"])
+    return adapter, head
 
 
 def _unpack_head(head: HeadPayload, device) -> HeadPayload:
@@ -195,20 +216,20 @@ class Broadcast:
     adapter: AdapterPayload
     head: HeadPayload = field(default_factory=dict)
     _raw: Optional[bytes] = field(default=None, repr=False, compare=False)
-    codec: Optional[object] = field(default=None, repr=False,
-                                    compare=False)
+    codec: Optional[WireCodec] = field(default=None, repr=False,
+                                       compare=False)
 
     kind = "broadcast"
 
-    def __post_init__(self):
-        _no_codec(self.codec)
-
     def to_bytes(self) -> bytes:
         if self._raw is None:
+            arrays, cmeta = _encode_payload(self.adapter, self.head,
+                                            self.codec)
             self._raw = pack_wire(
                 self.kind,
-                {"version": self.version, "client_id": self.client_id},
-                _flatten_payload(self.adapter, self.head))
+                {"version": self.version, "client_id": self.client_id,
+                 **cmeta},
+                arrays)
         return self._raw
 
     @classmethod
@@ -241,22 +262,22 @@ class ClientUpdate:
     adapter: AdapterPayload
     head: HeadPayload = field(default_factory=dict)
     _raw: Optional[bytes] = field(default=None, repr=False, compare=False)
-    codec: Optional[object] = field(default=None, repr=False,
-                                    compare=False)
+    codec: Optional[WireCodec] = field(default=None, repr=False,
+                                       compare=False)
 
     kind = "update"
 
-    def __post_init__(self):
-        _no_codec(self.codec)
-
     def to_bytes(self) -> bytes:
         if self._raw is None:
+            arrays, cmeta = _encode_payload(self.adapter, self.head,
+                                            self.codec)
             self._raw = pack_wire(
                 self.kind,
                 {"client_id": self.client_id,
                  "start_version": self.start_version,
-                 "num_examples": self.num_examples},
-                _flatten_payload(self.adapter, self.head))
+                 "num_examples": self.num_examples,
+                 **cmeta},
+                arrays)
         return self._raw
 
     @classmethod
@@ -277,6 +298,49 @@ class ClientUpdate:
     def unpack(self, r_max: int, device=None):
         return (pad_adapter(self.adapter, r_max, device),
                 _unpack_head(self.head, device))
+
+
+@dataclass
+class EdgeAggregate:
+    """Edge aggregator → root: one edge's ``ClientUpdate``s concentrated
+    into a single wire message, their serialized bytes forwarded verbatim
+    (concatenated, each one's length in the header), so the root
+    reassembles the exact per-client trees: the lossless 'stack' mode of
+    ``fed/topology.py``."""
+    edge_id: int
+    updates: List[ClientUpdate]
+    _raw: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    kind = "edge_aggregate"
+
+    def to_bytes(self) -> bytes:
+        if self._raw is None:
+            blobs = [u.to_bytes() for u in self.updates]
+            blob = torch.from_numpy(
+                np.frombuffer(b"".join(blobs), np.uint8).copy())
+            self._raw = pack_wire(
+                self.kind,
+                {"edge_id": int(self.edge_id),
+                 "lengths": [len(b) for b in blobs]},
+                {"blob": blob})
+        return self._raw
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "EdgeAggregate":
+        kind, meta, arrays = unpack_wire(data)
+        if kind != cls.kind:
+            raise ValueError(f"expected {cls.kind!r} message, got {kind!r}")
+        raw = arrays["blob"].numpy().tobytes()
+        updates, off = [], 0
+        for ln in meta["lengths"]:
+            updates.append(ClientUpdate.from_bytes(raw[off:off + ln]))
+            off += ln
+        return cls(edge_id=meta["edge_id"], updates=updates,
+                   _raw=bytes(data))
+
+    @property
+    def num_bytes(self) -> int:
+        return len(self.to_bytes())
 
 
 def payload_bytes(msg) -> int:

@@ -6,7 +6,9 @@ session owns what a merge means (strategy, redistribution, wire
 accounting). Three policies:
 
 ``SyncRound``      Cohort barrier: sample → broadcast → train the whole
-                   cohort → collect → one ``aggregate_round``.
+                   cohort → collect → one ``aggregate_round``; with a
+                   ``topology`` (``fed/topology.py``) the collect and the
+                   merge go through its edge aggregators.
 
 ``SemiSync``       Deadline cutoff: the whole cohort is broadcast and
                    trains, but only the clients whose simulated duration
@@ -33,8 +35,6 @@ span on ``fed.train``, and an async event a ``train`` span and an
 ``update_arrival`` instant on the client's own ``fed.client{cid}`` track;
 rounds observe ``fed.round_s``. These spans do not block: each ends after
 host code whose last device work may still be queued.
-
-Not ported yet: ``SyncRound``'s two-tier ``topology``.
 """
 from __future__ import annotations
 
@@ -67,17 +67,13 @@ def _eval_round(history, session, eval_fn, do_eval: bool) -> None:
 
 @dataclass
 class SyncRound(Scheduler):
-    """Synchronous cohort rounds (the paper's mode). ``topology`` (the
-    reference's two-tier edge/root aggregation) is not ported: only
-    ``None``, the flat round, is taken."""
+    """Synchronous cohort rounds (the paper's mode). ``topology`` (a
+    :class:`~repro_torch.fed.topology.HierarchicalTopology`) replaces the
+    flat collect and aggregate with the two-tier edge-and-root path; ``None``
+    is the flat round."""
     name = "sync"
 
     topology: Optional[object] = None
-
-    def __post_init__(self):
-        if self.topology is not None:
-            raise NotImplementedError(
-                "SyncRound(topology=...) is not ported yet (fed/topology.py)")
 
     def run(self, session, train, data_fn, num_rounds: int,
             eval_fn=None, eval_every: int = 1) -> Dict[str, List]:
@@ -103,9 +99,14 @@ class SyncRound(Scheduler):
                 rec.complete("train", "fed.train", t_tr, rec.now(),
                              round=rnd, cohort=len(cohort))
             trained = join_adapters(trainable["factors"], masks)
-            tree, up_heads = session.collect_updates(
-                cohort, trained, trainable["head"])
-            session.aggregate_round(tree, cohort, stacked_heads=up_heads)
+            if self.topology is not None:
+                self.topology.aggregate(session, cohort, trained,
+                                        trainable["head"])
+            else:
+                tree, up_heads = session.collect_updates(
+                    cohort, trained, trainable["head"])
+                session.aggregate_round(tree, cohort,
+                                        stacked_heads=up_heads)
             if rec.enabled:
                 t1 = rec.now()
                 rec.complete(f"round{rnd}", "fed.rounds", t_rnd, t1,

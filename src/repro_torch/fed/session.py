@@ -12,9 +12,16 @@ merges on one session.
   applies the strategy's scale correction.
 * **Wire accounting** (``fed/messages.py``): ``broadcast_cohort``,
   ``adapter_for``, ``collect_updates`` and ``make_update`` round-trip the
-  payloads through serialized ``Broadcast`` / ``ClientUpdate`` messages and
-  log the measured bytes; the round trip is exact, so the measured path is
-  the compute path.
+  payloads through serialized ``Broadcast`` / ``ClientUpdate`` messages,
+  encoded by the session's wire codec (``codec=`` or
+  ``ServerConfig.codec``, ``fed/compress.py``), and log the measured bytes
+  (``_log_comm``; a two-tier topology adds ``edge<i>_uplink`` rows on
+  ``fed.edge<i>`` tracks). Without a codec the round trip is exact, so the
+  measured path is the compute path; with one, what the receiver computes
+  on is what it decoded.
+* **Populations** (``fed/population.py``): with ``population=`` the
+  clients' sizes and ranks come from a lazily materialized population, and
+  a ``sampler=`` picks each round's cohort from the session rng.
 * **Merges**: ``aggregate_round`` (a synchronous cohort) and
   ``flush_async`` (a buffer of asynchronous updates, each discounted by
   its staleness under ``AsyncConfig``) are the only merge entry points;
@@ -48,8 +55,8 @@ distributions, not the same numbers.
   message serialization copy to the host, so they wait for what came
   before them). The recorder never synchronizes.
 
-Not ported yet: populations and samplers, wire codecs and the mesh;
-passing any of them raises ``NotImplementedError``.
+Not ported: the mesh (``mesh=`` raises ``NotImplementedError``); the port
+runs one device.
 """
 from __future__ import annotations
 
@@ -65,9 +72,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import agg_engine
 from repro_torch.core import rank as rank_lib
 from repro_torch.device import resolve_device
+from repro_torch.fed import compress as compress_lib
 from repro_torch.fed import messages as msg_lib
 from repro_torch.fed import strategies as strat_lib
 from repro_torch.fed.client import split_head
+from repro_torch.fed.population import sampler_from_name
 from repro_torch.models import transformer as tf_lib
 from repro_torch.obs.metrics import MetricsRegistry, percentile
 from repro_torch.obs.recorder import NULL_RECORDER
@@ -92,7 +101,9 @@ class ServerConfig:
     r_min: int = 2
     r_max: int = 8
     seed: int = 0
-    # wire codec; only "none" (the raw format) is ported
+    # wire codec of every Broadcast / ClientUpdate ("none" keeps the
+    # messages byte-identical to the raw format): none | bf16 | int8 |
+    # topk[:k] (fed/compress.py)
     codec: str = "none"
 
 
@@ -123,14 +134,6 @@ def assign_ranks(scfg: ServerConfig, client_sizes, capacities=None,
     raise ValueError(scfg.rank_policy)
 
 
-def _not_ported(**given) -> None:
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"FedSession({name}=...) is not ported yet: the port runs "
-                f"one device, without populations or wire codecs")
-
-
 class FedSession:
     def __init__(self, cfg: ModelConfig, scfg: ServerConfig, base_params,
                  client_sizes: Optional[Sequence[int]] = None,
@@ -147,13 +150,14 @@ class FedSession:
                  codec=None,
                  device=None):
         """``base_params``: a ``Transformer`` on ``device`` (None = CUDA,
-        which must exist)."""
-        _not_ported(mesh=mesh, population=population, sampler=sampler,
-                    codec=codec)
-        if scfg.codec != "none":
+        which must exist). ``population``: a ``ClientPopulation`` whose
+        sizes and ranks the session takes; ``sampler``: a ``ClientSampler``
+        or its name, which needs a population; ``codec``: a ``WireCodec``
+        or its name (None: ``scfg.codec``)."""
+        if mesh is not None:
             raise NotImplementedError(
-                f"ServerConfig.codec={scfg.codec!r}: wire codecs are not "
-                f"ported yet")
+                "FedSession(mesh=...) is not ported: the port runs one "
+                "device")
         self.device = resolve_device(device)
         if base_params.embed.device != self.device:
             raise ValueError(f"base params on {base_params.embed.device}, "
@@ -170,11 +174,31 @@ class FedSession:
         self.base = frozen
         self.global_head = head   # task head: FedAvg'd in-session
         self.rng = np.random.default_rng(scfg.seed)
+        # population mode: client metadata (sizes, ranks) comes from the
+        # lazily materialized population; shard data is built per round by
+        # its data_fn, so the session holds only the cohort's updates
+        self.population = population
+        self.sampler = sampler_from_name(sampler)
+        if population is not None:
+            if population.size != scfg.num_clients:
+                raise ValueError(
+                    f"population has {population.size} clients but "
+                    f"scfg.num_clients={scfg.num_clients}")
+            if client_sizes is None:
+                client_sizes = population.num_examples
+        elif self.sampler is not None:
+            raise ValueError("a sampler needs a population")
         self.client_sizes = np.asarray(
             client_sizes if client_sizes is not None
             else np.full(scfg.num_clients, 64), np.int64)
         self.ranks = assign_ranks(scfg, self.client_sizes, capacities,
                                   self.rng)
+        if population is not None and population.ranks is not None:
+            self.ranks = population.ranks.astype(np.int32).copy()
+        # the wire codec of every Broadcast / ClientUpdate; None keeps the
+        # messages byte-identical to the raw format
+        self.codec = compress_lib.from_name(
+            codec if codec is not None else scfg.codec)
         # global adapter at full rank (A gaussian, B zero => ΔW = 0)
         gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         self.global_lora = tf_lib.init_lora(gen, cfg, device=self.device)
@@ -202,26 +226,41 @@ class FedSession:
         self.health_log: List[Dict[str, float]] = []
         self.health_z_threshold: float = 3.0
         self._health_seen: Dict[str, float] = {}
+        if population is not None and population.metrics is None:
+            population.metrics = self.metrics
         # live BufferedAsync state ({heap, pending, buffer}), installed by
         # the scheduler and serialized by save/restore, so that an async
         # run can checkpoint mid-flight and resume exactly
         self.async_state: Optional[dict] = None
 
-    def _log_comm(self, direction: str, nbytes: int) -> None:
+    def _log_comm(self, direction: str, nbytes: int,
+                  track: str = "fed.wire") -> None:
         """The comm accounting choke point: the per-call ``comm_log`` row,
         a registry byte counter and, while recording, a wire-traffic
-        counter sample on the shared timeline."""
+        counter sample on ``track``. A new direction (the topology's
+        ``edge<i>_uplink``) makes its own column and counter."""
         self.comm_log.setdefault(direction, []).append(nbytes)
         self.metrics.counter(f"fed.{direction}_bytes").inc(int(nbytes))
         if self.rec.enabled:
-            self.rec.counter_sample(f"fed.{direction}_bytes", "fed.wire",
+            self.rec.counter_sample(f"fed.{direction}_bytes", track,
                                     int(nbytes))
 
     # -- cohort handling ----------------------------------------------------
 
     def sample_cohort(self) -> np.ndarray:
-        """This round's cohort: a uniform draw without replacement from
-        the session rng."""
+        """This round's cohort, drawn from the session rng: by the sampler
+        in population mode (recording a ``cohort_sampled`` instant on
+        ``fed.server``), else uniformly without replacement."""
+        if self.sampler is not None:
+            cohort = np.asarray(self.sampler.sample(
+                self.population, self.rng, self.rounds_done,
+                self.scfg.clients_per_round), np.int64)
+            if self.rec.enabled:
+                self.rec.instant("cohort_sampled", "fed.server",
+                                 sampler=self.sampler.name,
+                                 cohort=len(cohort),
+                                 round=self.rounds_done)
+            return cohort
         return self.rng.choice(self.scfg.num_clients,
                                size=self.scfg.clients_per_round,
                                replace=False)
@@ -291,7 +330,8 @@ class FedSession:
                                            self._client_ranks(cid))
         return msg_lib.Broadcast(version=self.version, client_id=int(cid),
                                  adapter=payload,
-                                 head=dict(self.global_head))
+                                 head=dict(self.global_head),
+                                 codec=self.codec)
 
     @staticmethod
     def _stack_clients(per_client, heads):
@@ -357,7 +397,7 @@ class FedSession:
             client_id=int(cid), start_version=int(start_version),
             num_examples=int(self.client_sizes[int(cid)]),
             adapter=msg_lib.truncate_adapter(trained_lora, ranks),
-            head=dict(head or {}))
+            head=dict(head or {}), codec=self.codec)
         if log:
             self._log_comm("uplink", upd.num_bytes
                            if self.track_comm else 0)

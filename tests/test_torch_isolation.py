@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's example ``examples/lm_pretrain_torch.py`` import neither JAX nor
+port's examples ``examples/lm_pretrain_torch.py`` and
+``examples/fed_finetune_torch.py`` import neither JAX nor
 anything of the reference package ``repro``, and the port's entry points
 refuse to run on a missing GPU unless the caller asks for the CPU."""
 import ast
@@ -16,7 +17,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-EXAMPLES = [ROOT / "examples" / "lm_pretrain_torch.py"]
+EXAMPLES = [ROOT / "examples" / "lm_pretrain_torch.py",
+            ROOT / "examples" / "fed_finetune_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -82,7 +84,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "util.py", "checkpoint/store.py",
                 "launch/train.py", "obs/recorder.py", "obs/export.py",
                 "obs/timeseries.py", "obs/slo.py", "obs/collect.py",
-                "obs/report.py"):
+                "obs/report.py", "fed/compress.py", "fed/population.py",
+                "fed/topology.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 
@@ -149,6 +152,32 @@ def test_lm_example_refuses_a_missing_gpu_without_device_cpu():
         example.train(cfg, params, data, device=None, **kw)
     _, losses = example.train(cfg, params, data, device="cpu", **kw)
     assert len(losses) == 1                              # asked for: fine
+
+
+def test_fed_example_refuses_a_missing_gpu_without_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately means it")
+    import argparse
+    from repro_torch.configs import get_reduced
+    from repro_torch.fed import SimConfig
+    spec = importlib.util.spec_from_file_location("fed_finetune_torch",
+                                                  EXAMPLES[1])
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    argv = ["--population", "20", "--sample-rate", "0.1", "--rounds", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.main(argv)
+    args = example.parse_args(argv + ["--codec", "int8"])
+    assert args.device is None and args.codec == "int8"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.run_population(get_reduced("roberta-large"), SimConfig(),
+                               args)
+    with pytest.raises(SystemExit):
+        example.make_scheduler("async", 4, 2, edges=2)
+    assert isinstance(example.make_scheduler("sync", 4, 2, 2).topology,
+                      example.HierarchicalTopology)
+    assert example.parse_args(["--device", "cpu"]).device == "cpu"
+    assert isinstance(args, argparse.Namespace)
 
 
 def test_federated_trainers_default_to_no_remat_as_the_reference_does():

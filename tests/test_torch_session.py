@@ -456,17 +456,50 @@ class _Stub:
 @pytest.mark.parametrize("kw", ["acfg", "mesh", "population", "sampler",
                                 "codec"])
 def test_session_refuses_what_is_not_ported(weights, kw):
-    """What is not ported raises; ``acfg`` (the async staleness policy) is
-    ported: it is taken and kept, and the session has no async state until
-    a ``BufferedAsync`` run installs it."""
+    """The mesh is not ported and raises. ``acfg`` (the async staleness
+    policy) is taken and kept, and the session has no async state until a
+    ``BufferedAsync`` run installs it. A population is taken (its sizes and
+    ranks become the session's; one of another size raises ``ValueError``),
+    a sampler needs one (``ValueError`` without), and a codec is taken by
+    name or object, ``ServerConfig.codec`` when none is given."""
+    from repro_torch.fed import compress, population
     if kw == "acfg":
         acfg = t_session.AsyncConfig(max_staleness=3, base_weight=0.5)
         sess = _session(weights, acfg=acfg)
         assert sess.acfg is acfg and sess.async_state is None
         assert _session(weights).acfg == t_session.AsyncConfig()
         return
-    with pytest.raises(NotImplementedError, match=kw):
-        _session(weights, **{kw: _Stub()})
+    if kw == "mesh":
+        with pytest.raises(NotImplementedError, match=kw):
+            _session(weights, mesh=_Stub())
+        return
+    n = SERVER["num_clients"]
+    pop = population.ClientPopulation.synthetic(n, seed=4)
+    if kw == "population":
+        sess = _session(weights, population=pop)
+        np.testing.assert_array_equal(sess.client_sizes, pop.num_examples)
+        np.testing.assert_array_equal(sess.ranks, pop.ranks)
+        assert sess.sampler is None and pop.metrics is sess.metrics
+        with pytest.raises(ValueError, match="num_clients"):
+            _session(weights, population=population.ClientPopulation.
+                     synthetic(n + 1, seed=4))
+        return
+    if kw == "sampler":
+        sess = _session(weights, population=pop, sampler="uniform")
+        assert isinstance(sess.sampler, population.UniformSampler)
+        assert len(sess.sample_cohort()) == SERVER["clients_per_round"]
+        with pytest.raises(ValueError, match="needs a population"):
+            _session(weights, sampler="uniform")
+        with pytest.raises(ValueError, match="needs a population"):
+            _session(weights, sampler=population.RankStratifiedSampler())
+        return
+    assert _session(weights).codec is None
+    assert _session(weights, codec="int8").codec.name == "int8"
+    codec = compress.TopKCodec(2)
+    assert _session(weights, codec=codec).codec is codec
+    assert _session(weights, server=dict(codec="bf16")).codec.name == "bf16"
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        _session(weights, codec="zip")
 
 
 def test_session_records_its_phases_on_a_recorder(weights):
@@ -495,11 +528,6 @@ def test_session_records_its_phases_on_a_recorder(weights):
 def test_round_refusals(weights):
     cfg, tparams = weights["tcfg"], weights["tparams"]
     scfg = t_session.ServerConfig(**SERVER)
-    with pytest.raises(NotImplementedError, match="codec"):
-        t_session.FedSession(cfg, t_session.ServerConfig(codec="int8"),
-                             tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="topology"):
-        t_sched.SyncRound(topology=_Stub())
     # BufferedAsync is ported: one round of 3 clients is 3 events, merged
     # two at a time and the last drained
     hist = t_sim.run_experiment(
