@@ -18,7 +18,8 @@ Phases, each of which raises on failure:
    with its plan, its registers and the same bits on a second call, and at
    another split count; flash_attention also with the same bits on a
    second call, at the last chunk of a 2k-token prompt, and in every other
-   variant built
+   variant built; the four serving kernels timed in bf16 too at the engine's
+   shapes
    (head dims 64 and 128, element-wise staging, one split without the
    merge), its library time the faster of two SDPA calls with the kernels
    each ran; the paged decode and verify kernels with the same bits on a
@@ -176,13 +177,37 @@ Phases, each of which raises on failure:
    round-0 broadcast under bf16, int8, topk:4 and topk:8, the same bytes on
    the card as on the CPU, decoded on the card within each codec's bound;
    each part's wall time, a round's p50, peak memory;
-14. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+14. the rest of single-device serving on phase 4's full-width Gemma-2B
+   weights and registry, run right after phase 5 (before those weights
+   are freed): (a) phase 4's 8 requests through ``kv_mode="dense"`` (the
+   ring cache, each prompt fed a token a step): the oracle's tokens under
+   phase 4's near-tie rule, exactly 72 ``bgmv`` launches a step and no
+   attention kernel, the dense cache's bytes against the page pool's, and a
+   row driven past its ring raising; (b) the four adapters saved with the
+   port's store under ``build/`` and served through
+   ``AdapterRegistry.register_checkpoint`` from 2 slots: phase 4's tokens,
+   the reference registry's counts on the same traffic
+   (``CKPT_WAVE_COUNTS``), and an evicted adapter reloaded bit for bit
+   (``slot_tree``); (c) the weights, registry and cache in bf16: each
+   request's first-step logits within ``bf16_logit_rel`` of (b)'s float32
+   engine's, the tokens held to phase 4's up to the first float32 near-tie
+   under that bound, a forced-accept speculative wave held to the plain
+   bf16 tokens the same way; a plain and a speculative wave teacher-forced
+   along (b)'s float32 tokens, the logits of every position within the
+   bound of (b)'s; two wrong engines (adapters rotated, LoRA B zeroed)
+   outside it for every request; each serving kernel launched in bf16,
+   and the decode step p50 and tok/s against phase 4's; (d)
+   ``examples/serve_adapters_torch.py``'s four scenarios at full width
+   (8/8 and 12/12 against the oracles, the hot-swap taken, the replay
+   byte-identical to plain 8/8);
+15. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -203,6 +228,45 @@ PEAK_OPS_PER_S = {"float32": 67e12,        # CUDA cores, no tensor cores
 # in other orders (kernels, batch 8 vs batch 1, merged vs factored LoRA),
 # which moves O(1) logits by far less than 1e-3 but can flip a near-tie.
 GAP_TOL = 1e-3
+
+# bfloat16 serving against float32 serving, or two bfloat16 evaluations that
+# round in different places (tests/test_torch_serve_bf16.py holds the port
+# to the reference with the same bound). bf16 keeps 8 significant bits: a
+# rounding moves a value by at most u = 2^-8 of itself, uniformly, so by
+# u/sqrt(3) rms. A layer rounds, on its way from input to output, 31 values
+# (the two norms; per projection q, k, v, o, w1, w3, w2 the base product,
+# the LoRA delta and their sum; RoPE on q and k; the attention
+# probabilities and output; GeGLU's activation and gate product; the two
+# residual adds) and reads 7 weight matrices rounded from float32: 38 a
+# layer, plus 4 outside the layers (the embedding, the final norm, the
+# head's weights and its product). To first order each of these N = 38 L +
+# 4 errors reaches the final hidden state h at its own relative size (the
+# residual stream carries it, the pre-norms rescale the branches' inputs)
+# and they are independent, so two evaluations that each round at N points
+# differ in h by a relative rms of sqrt(2 N) u / sqrt(3), in a direction
+# unrelated to the head's columns: each logit moves by that share of the
+# row's rms. Six times it bounds the largest of the 8 x 256000 logits of a
+# wave's first step (P(|N(0,1)| > 6) = 2e-9 a logit). Against float32 only
+# one side rounds, so the bound holds with room to spare.
+BF16_SIGMAS = 6.0
+
+
+def bf16_logit_rel(num_layers: int) -> float:
+    """|bf16 logit - reference logit| <= this * rms(reference logits of the
+    row), per element (the derivation above). A greedy token can change
+    only where the top-2 gap is below twice the bound: each of the two
+    logits may move by it."""
+    n = 38 * num_layers + 4
+    return BF16_SIGMAS * math.sqrt(2 * n) * 2.0 ** -8 / math.sqrt(3)
+
+
+# Phase 14 (b)'s registry counts: 8 requests of 32 new tokens, round-robin
+# over 4 checkpoint-backed adapters, through a registry of 2 slots. Rows
+# finish in pairs, so each pair loads its two adapters (evicting the last
+# pair's) and the queue's head misses once a step while the pair decodes. The
+# reference's registry and engine give these counts on the CPU
+# (tests/test_torch_registry.py); they depend on neither width nor prompts.
+CKPT_WAVE_COUNTS = {"loads": 8, "evictions": 6, "hits": 0, "misses": 101}
 
 
 def log(*args):
@@ -553,7 +617,7 @@ def check_paged(torch, ops, paged_mod, gen) -> dict:
             log("    " + paged_plan_line(torch, paged_mod, "paged_attn_kernel",
                                          b, 1, hkv * g, hkv, p, ps, dh,
                                          dtype))
-            if dtype != torch.float32 or p < 13:
+            if p < 13:
                 continue
             ms = time_ms(call)
             plain_ms = time_ms(lambda: paged_mod.paged_attention_plain(
@@ -565,7 +629,7 @@ def check_paged(torch, ops, paged_mod, gen) -> dict:
             log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
                 f"(no single PyTorch call reads through page tables) "
                 f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
-            if row is None:
+            if row is None and dtype == torch.float32:
                 row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": None, **bd}
     log("  the same bits on a second call: every case above")
@@ -661,8 +725,9 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
             got = ops.flash_attention(q, k, v, **kw)
             err = compare(f"{dtype} {label}", got, want)
             same_bits("flash_attention", got, again(kw, q, k, v))
-            if dtype == torch.float32 and label == cases[0][0]:
-                row = time_flash(torch, ops, flash_mod, q, k, v, kw, err)
+            if label == cases[0][0]:
+                timed = time_flash(torch, ops, flash_mod, q, k, v, kw, err)
+                row = timed if dtype == torch.float32 else row
     log("  the same bits on a second call: every case above")
 
     log("flash_attention (long prompt, its last chunk: Sq=64, H=8, Hkv=1, "
@@ -744,26 +809,9 @@ def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
             log("    " + paged_plan_line(torch, paged_mod,
                                          "paged_verify_kernel", b, sq,
                                          hkv * g, hkv, p, ps, dh, dtype))
-            if dtype != torch.float32:
-                continue
-            # one token per row at q_offsets = lengths - 1 is decode attention
-            l1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")
-            o1 = torch.clamp(l1 - 1, min=0).to(torch.int32)
-            ver = ops.paged_verify_attention(q[:, :1].contiguous(), kp, vp,
-                                             tables, l1, o1,
-                                             page_size=ps)[:, 0]
-            dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, tables,
-                                      l1, page_size=ps)
-            torch.cuda.synchronize()
-            d1 = float((ver - dec).abs().max())
-            ok = d1 <= 1e-6
-            log(f"    Sq=1 at q_offsets = lengths - 1 against the decode "
-                f"kernel: max_abs_err {d1:.3e} (tolerance 1e-6, "
-                f"bit-identical {bool(torch.equal(ver, dec))}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("verify kernel at Sq=1 disagrees with "
-                                     "the decode kernel")
+            if dtype == torch.float32:
+                verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1,
+                                         ps)
             if p < 13:
                 continue
             ms = time_ms(call)
@@ -781,11 +829,32 @@ def check_verify(torch, ops, verify_mod, paged_mod, gen) -> dict:
             log(f"    ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms null "
                 f"(no single PyTorch call reads through page tables) "
                 f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
-            if row is None:
+            if row is None and dtype == torch.float32:
                 row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": None, **bd}
     log("  the same bits on a second call: every case above")
     return row
+
+
+def verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1, ps):
+    """One token per row at q_offsets = lengths - 1 is decode attention:
+    the verify kernel must give the decode kernel's output."""
+    l1 = torch.tensor(lens1, dtype=torch.int32, device="cuda")
+    o1 = torch.clamp(l1 - 1, min=0).to(torch.int32)
+    ver = ops.paged_verify_attention(q[:, :1].contiguous(), kp, vp,
+                                     tables, l1, o1, page_size=ps)[:, 0]
+    dec = ops.paged_attention(q[:, 0].contiguous(), kp, vp, tables, l1,
+                              page_size=ps)
+    torch.cuda.synchronize()
+    d1 = float((ver - dec).abs().max())
+    ok = d1 <= 1e-6
+    log(f"    Sq=1 at q_offsets = lengths - 1 against the decode "
+        f"kernel: max_abs_err {d1:.3e} (tolerance 1e-6, "
+        f"bit-identical {bool(torch.equal(ver, dec))}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("verify kernel at Sq=1 disagrees with "
+                             "the decode kernel")
 
 
 # (label, M, K, N, R): the training, pretraining and LM training paths'
@@ -1552,8 +1621,9 @@ def run_engine(torch, np) -> dict:
             "recorder": rec,
             "registry": registry, "prompts": prompts, "steps": steps,
             "plain": [outs[u] for u in uids], "oracle": oracle, "gaps": gaps,
-            "plain_steps": n_steps,
-            "engine_kw": kw, "adapters": names}
+            "plain_steps": n_steps, "plain_rows": plain_rows,
+            "tok_s": tok_s, "kv_bytes": engine.kv_cache_bytes(),
+            "engine_kw": kw, "adapters": names, "trees": adapters}
 
 
 def profile_engine(torch, engine, prompts, n_adapters,
@@ -1817,6 +1887,542 @@ def run_spec(torch, ctx) -> dict:
     profile_engine(torch, engine_with(NGramDrafter(2), "spec-profiled"),
                    ctx["prompts"], 4, step="verify")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the rest of single-device serving on full-width Gemma-2B
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(ROOT, "build", "phase14_ckpt")
+SERVE_EXAMPLE = os.path.join(ROOT, "examples", "serve_adapters_torch.py")
+SERVING_KERNELS = ("bgmv", "paged_attention", "flash_attention",
+                   "paged_verify_attention")
+
+
+def _serve_example():
+    """``examples/serve_adapters_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("serve_adapters_torch",
+                                                  SERVE_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class KeptLogits:
+    """The logits of every position ``engine`` samples, kept by request and
+    output index (``kept[uid][j]`` scored ``out[j]``): the prefill's first
+    token, each decode row, each verify window's rows. With ``scripts``
+    (uid -> tokens) the engine is teacher-forced: the raw logits are kept,
+    and the argmax is taken of a copy with the script's token raised to
+    +inf, so the engine runs along another evaluation's tokens and every
+    position's logits can be held against that evaluation's. Wraps the
+    engine's own methods; the kernels and their launches are untouched."""
+
+    def __init__(self, engine, scripts=None):
+        self.kept, self.scripts = {}, scripts
+        self._req = self._perm = None
+        prefill_row, logits = engine._prefill_row, engine._logits
+        slot_order = engine._slot_order
+        decode, verify = engine._decode_step, engine._verify_step
+
+        def prefill_row_kept(row, req):
+            self._req = req
+            prefill_row(row, req)
+            self._req = None
+
+        def logits_kept(x):
+            z = logits(x)
+            if x.dim() == 1 and self._req is not None:
+                z = self._keep(z[None], [(0, self._req, 0)])[0]
+            return z
+
+        def slot_order_kept(idx, mask):
+            self._perm, inv = slot_order(idx, mask)
+            return self._perm, inv
+
+        def decode_kept(tables, idx, tokens, pos, lens, layers=None):
+            z = decode(tables, idx, tokens, pos, lens, layers)
+            return self._keep(z, [(b, r, len(r["out"]))
+                                  for b, r in self._rows(engine)])
+
+        def verify_kept(tables, idx, tokens, pos0, nv):
+            z = verify(tables, idx, tokens, pos0, nv)
+            nv = nv.cpu().tolist()
+            rows = [((b, s), r, len(r["out"]) + s)
+                    for b, r in self._rows(engine) for s in range(nv[b])]
+            return self._keep(z, rows)
+
+        engine._prefill_row, engine._logits = prefill_row_kept, logits_kept
+        engine._slot_order = slot_order_kept
+        engine._decode_step, engine._verify_step = decode_kept, verify_kept
+
+    def _rows(self, engine):
+        """(batch index, request) of the live rows, in the step's order."""
+        return [(b, engine._rows[i]) for b, i in enumerate(self._perm)
+                if engine._rows[i] is not None]
+
+    def _keep(self, z, rows):
+        forced = z.clone() if self.scripts is not None else z
+        for at, req, j in rows:
+            self.kept.setdefault(req["uid"], {})[j] = z[at].clone()
+            if self.scripts is not None:
+                forced[at][int(self.scripts[req["uid"]][j])] = math.inf
+        return forced
+
+    def bind(self, uids) -> None:
+        """The wave's requests, in submission order; a list of scripts is
+        theirs in that order."""
+        self.uids = list(uids)
+        if self.scripts is not None:
+            self.scripts = dict(zip(self.uids, self.scripts))
+
+    def by_request(self) -> list:
+        """Each request's kept rows in output order, (positions, V)."""
+        import torch
+        return [torch.stack([self.kept[u][j] for j in sorted(self.kept[u])])
+                for u in self.uids]
+
+
+def serve_wave(torch, ops, engine, ctx, scripts=None, kept=None,
+               adapters=None, steps=None) -> tuple:
+    """Phase 4's 8 requests through ``engine``, the launch counts set to 0
+    just before and read just after; scripts (a list a request) go to the
+    engine's drafter, ``kept`` (a ``KeptLogits``) is bound to the requests,
+    ``adapters`` and ``steps`` replace phase 4's. Returns (tokens a request,
+    launches, wall s, the timed steps)."""
+    uids = [engine.submit(p, a, max_new_tokens=steps or ctx["steps"])
+            for p, a in zip(ctx["prompts"], adapters or ctx["adapters"])]
+    for uid, script in zip(uids, scripts or ()):
+        engine.drafter.set(uid, script)
+    if kept is not None:
+        kept.bind(uids)
+    rows = timed_steps(engine)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [outs[u] for u in uids], dict(ops.LAUNCHES), wall, rows
+
+
+def hold_launches(label, launches, expect) -> None:
+    """Exact launch counts: the kernels ``expect`` names, and 0 for every
+    other kernel."""
+    want = {name: expect.get(name, 0) for name in launches}
+    ok = launches == want
+    log(f"  {label}: launches {launches} (expect {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+
+
+def hold_oracle(np, label, outs, want, ctx) -> int:
+    """Each request's tokens against ``want`` (phase 4's oracle or plain
+    tokens) under phase 4's near-tie rule; returns the exact count."""
+    exact = 0
+    for i, out in enumerate(outs):
+        msg = first_difference_ok(out, want[i], ctx["oracle"][i],
+                                  ctx["gaps"][i])
+        if msg:
+            log(f"    {label} request {i}: {msg}")
+        else:
+            exact += 1
+    return exact
+
+
+def run_dense(torch, np, ops, ctx) -> dict:
+    """(a) Phase 4's requests through ``kv_mode="dense"``: the oracle's
+    tokens, 72 bgmv launches a step and no attention kernel (decode
+    attention is plain PyTorch, as in the reference), and a row driven past
+    its ring raising."""
+    from repro_torch.serve import ServeEngine
+    cfg, steps = ctx["cfg"], ctx["steps"]
+    dev = ctx["params"].embed.device
+    max_seq = ctx["engine_kw"]["max_seq"]
+    engine = ServeEngine(ctx["params"], cfg, ctx["registry"], max_batch=8,
+                         max_seq=max_seq, kv_mode="dense", device=dev)
+    outs, launches, wall, rows = serve_wave(torch, ops, engine, ctx)
+    per_step = 4 * cfg.num_layers
+    hold_launches(f"(a) dense, {engine.steps} steps (each prompt fed a "
+                  f"token a step): {per_step} bgmv a step, no attention "
+                  f"kernel", launches, {"bgmv": per_step * engine.steps})
+    exact = hold_oracle(np, "(a) dense", outs, ctx["oracle"], ctx)
+    lens = [p.size for p in ctx["prompts"]]
+    if engine.steps != max(lens) + steps - 1:
+        raise AssertionError(f"dense took {engine.steps} steps, expected "
+                             f"{max(lens) + steps - 1}")
+    ps = ctx["engine_kw"]["page_size"]
+    page_bytes = ctx["kv_bytes"] // (8 * -(-max_seq // ps) + 1)
+    held = sum(-(-(n + steps) // ps) for n in lens) * page_bytes
+    p50 = decode_p50_ms(np, rows)
+    log(f"  (a) dense: {exact}/8 exact against the oracle (the near-tie "
+        f"rule otherwise); {8 * steps / wall:.1f} tok/s ({wall:.3f} s), "
+        f"decode step p50 {p50:.3f} ms over {len(rows)} steps (phase 4's "
+        f"paged p50 {decode_p50_ms(np, ctx['plain_rows']):.3f} ms over its "
+        f"decode-only steps); KV bytes: dense {engine.kv_cache_bytes()} "
+        f"({engine.kv_cache_bytes() / 2**20:.1f} MiB, 8 rows x {max_seq}), "
+        f"phase 4's page pool {ctx['kv_bytes']} (sized for the worst case, "
+        f"{ctx['kv_bytes'] / 2**20:.1f} MiB), the pages this traffic holds "
+        f"at once {held} ({held / 2**20:.1f} MiB)")
+    ring = ServeEngine(ctx["params"], cfg, ctx["registry"], max_batch=1,
+                       max_seq=8, kv_mode="dense", device=dev)
+    ring.submit(ctx["prompts"][0][:4], ctx["adapters"][0], max_new_tokens=4)
+    ring._queue[0]["max_new"] = 10        # past submit's guard
+    try:
+        ring.run()
+    except RuntimeError as err:
+        if "ring" not in str(err):
+            raise
+        log(f"  (a) a row driven past its ring of 8 raised after "
+            f"{ring.steps} steps: {err}")
+    else:
+        raise AssertionError("a dense row past its ring did not raise")
+    return {"launches": launches, "wall": wall, "p50": p50}
+
+
+def run_checkpoint_adapters(torch, np, ops, ctx) -> dict:
+    """(b) The four adapters saved with the port's store under build/,
+    served through ``register_checkpoint`` from a registry of 2 slots:
+    phase 4's tokens, the reference's counts (``CKPT_WAVE_COUNTS``), and a
+    reloaded slot bit for bit its source. Returns the wave's launches, and
+    its tokens and the logits of every position it sampled (float32, the
+    bf16 waves' reference)."""
+    import shutil
+    from repro_torch.checkpoint import store
+    from repro_torch.serve import AdapterRegistry, ServeEngine
+    cfg, trees = ctx["cfg"], ctx["trees"]
+    dev = ctx["params"].embed.device
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    registry = AdapterRegistry(cfg, capacity=2, device=dev)
+    for aid, tree in trees.items():
+        d = os.path.join(CKPT_DIR, aid)
+        store.save(d, 0, tree, meta={"adapter": aid})
+        registry.register_checkpoint(aid, d)
+    save_s = time.perf_counter() - t0
+    if registry.loads or registry.resident():
+        raise AssertionError("register_checkpoint read a checkpoint")
+    engine = ServeEngine(ctx["params"], cfg, registry, device=dev,
+                         **ctx["engine_kw"])
+    kept = KeptLogits(engine)
+    outs, launches, wall, rows = serve_wave(torch, ops, engine, ctx,
+                                            kept=kept)
+    layers = cfg.num_layers
+    hold_launches(f"(b) {engine.steps} steps, {engine.prefill_calls} "
+                  f"prefill chunks", launches,
+                  {"bgmv": 4 * layers * engine.steps,
+                   "paged_attention": layers * engine.steps,
+                   "flash_attention": layers * engine.prefill_calls})
+    exact = hold_oracle(np, "(b)", outs, ctx["plain"], ctx)
+    counts = {k: getattr(registry, k) for k in CKPT_WAVE_COUNTS}
+    ok = counts == CKPT_WAVE_COUNTS
+    log(f"  (b) 4 adapters saved under {os.path.relpath(CKPT_DIR, ROOT)} in "
+        f"{save_s:.2f} s, registered lazily (nothing read), 8 requests "
+        f"through 2 slots in {wall:.3f} s ({engine.steps} steps): {exact}/8 "
+        f"equal to phase 4's tokens; registry {counts} (the reference's on "
+        f"the CPU: {CKPT_WAVE_COUNTS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"registry counts {counts} != "
+                             f"{CKPT_WAVE_COUNTS}")
+    victim = next(a for a in trees if registry.slot_of(a) is None)
+    loads = registry.loads
+    registry.acquire(victim)
+    got = registry.slot_tree(victim)
+    registry.release(victim)
+    for t, ad in trees[victim].items():
+        r = ad["A"].shape[-1]
+        pads = (got[t]["A"][..., r:], got[t]["B"][:, r:], got[t]["mask"][:, r:])
+        if not (torch.equal(got[t]["A"][..., :r], ad["A"])
+                and torch.equal(got[t]["B"][:, :r], ad["B"])
+                and torch.equal(got[t]["mask"][:, :r], ad["mask"])
+                and not any(bool(p.any()) for p in pads)):
+            raise AssertionError(f"reloaded {victim} {t}: slot_tree is not "
+                                 f"its source bit for bit")
+    if registry.loads != loads + 1:
+        raise AssertionError("the reload did not read the checkpoint once")
+    log(f"  (b) {victim}, evicted, reloaded from its checkpoint (loads "
+        f"{loads} -> {registry.loads}): slot_tree equal to the source bit "
+        f"for bit, padding past each rank exactly 0 ok")
+    logits = kept.by_request()
+    if [len(z) for z in logits] != [ctx["steps"]] * 8:
+        raise AssertionError(f"kept {[len(z) for z in logits]} positions, "
+                             f"expected {ctx['steps']} a request")
+    return {"launches": launches, "f32": {"tokens": outs, "logits": logits}}
+
+
+def positions_held(np, got, want, gaps, gap_tol) -> tuple:
+    """Tokens equal up to the first position whose float32 top-2 gap is
+    below ``gap_tol`` (past it a bf16 evaluation may take the other
+    token). Returns (positions held, equal leading positions)."""
+    small = np.nonzero(np.asarray(gaps) < gap_tol)[0]
+    held = int(small[0]) if small.size else len(want)
+    diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    lead = int(diff[0]) if diff.size else len(want)
+    if lead < held:
+        raise AssertionError(f"token {lead} differs where the float32 gap "
+                             f"{gaps[lead]:.4f} >= {gap_tol:.4f}")
+    return held, lead
+
+
+def bf16_worst(got, want, rel) -> list:
+    """Each request's kept bf16 rows against the float32 rows of the same
+    positions: the largest |bf16 - float32| / (rel * the float32 row's
+    rms), by request (at most 1 holds the bound)."""
+    worst = []
+    for z16, z32 in zip(got, want):
+        z32 = z32[:len(z16)]
+        rms = z32.pow(2).mean(-1, keepdim=True).sqrt()
+        worst.append(float(((z16.float() - z32).abs() / (rel * rms)).amax()))
+    return worst
+
+
+def hold_bf16(label, worst, rel) -> None:
+    ok = all(math.isfinite(w) and w <= 1.0 for w in worst)
+    log(f"  (c) {label}, per element within {rel:.4f} x the float32 row's "
+        f"rms (derived beside GAP_TOL): worst err/limit by request "
+        f"{[round(w, 4) for w in worst]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 logits outside the bound: "
+                             f"{worst}")
+
+
+def run_bf16(torch, np, ops, ctx, f32) -> dict:
+    """(c) bf16 weights, registry and cache. The plain wave: first-step
+    logits within ``bf16_logit_rel`` of the float32 engine's ((b)'s wave),
+    tokens held to the float32 wave's up to its first near-tie under that
+    bound, and the forced-accept speculative wave to the plain bf16
+    wave's. Random weights leave top-2 gaps of about a fifth of the
+    logits' rms, under twice the bound, so those token holds end within a
+    few positions; the numeric check of decode and verify is teacher
+    forcing: a plain and a speculative wave driven along (b)'s float32
+    tokens (``KeptLogits``), every position's logits held to the bound
+    against (b)'s. Two controls show the bound rejects a wrong engine: the
+    adapters rotated between requests, and every LoRA B zeroed, must each
+    fall outside it for every request. Each serving kernel launches in
+    bf16."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.serve import AdapterRegistry, ScriptedDrafter, \
+        ServeEngine
+    bf16 = torch.bfloat16
+    cfg, layers, steps = ctx["cfg"], ctx["cfg"].num_layers, ctx["steps"]
+    dev = ctx["params"].embed.device
+    t0 = time.perf_counter()
+    params = Transformer.from_tree(
+        cfg, tree_map(lambda t: t.to(bf16), ctx["params"].tree()))
+
+    def registry_of(trees):
+        reg = AdapterRegistry(cfg, capacity=4, dtype=bf16, device=dev)
+        for aid, tree in trees.items():
+            reg.register(aid, tree)
+        return reg
+
+    registry = registry_of(ctx["trees"])
+    torch.cuda.synchronize()
+    log(f"  (c) weights cast to bf16 in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() * p.element_size() for p in params.parameters()) / 2**30:.2f} "
+        f"GiB beside the float32 copy)")
+
+    def engine(drafter=None, reg=registry):
+        return ServeEngine(params, cfg, reg, cache_dtype=bf16,
+                           drafter=drafter, spec_k=4, device=dev,
+                           **ctx["engine_kw"])
+
+    plain = engine()
+    plain.submit(ctx["prompts"][0][:67], ctx["adapters"][0],
+                 max_new_tokens=3)     # warm-up: bf16 GEMM handles
+    plain.run()
+    steps0, chunks0 = plain.steps, plain.prefill_calls
+    kept = KeptLogits(plain)
+    outs, launches, wall, rows = serve_wave(torch, ops, plain, ctx,
+                                            kept=kept)
+    n_steps, chunks = plain.steps - steps0, plain.prefill_calls - chunks0
+    hold_launches(f"(c) bf16, {n_steps} steps, {chunks} chunks", launches,
+                  {"bgmv": 4 * layers * n_steps,
+                   "paged_attention": layers * n_steps,
+                   "flash_attention": layers * chunks})
+    rel = bf16_logit_rel(layers)
+    hold_bf16("first-step logits against the float32 engine's ((b)'s wave)",
+              bf16_worst([z[:1] for z in kept.by_request()], f32["logits"],
+                         rel), rel)
+    del kept
+    rms = [float(z[0].pow(2).mean().sqrt()) for z in f32["logits"]]
+    gap_tol = [2 * rel * r for r in rms]
+    held = [positions_held(np, outs[i], ctx["plain"][i], ctx["gaps"][i],
+                           gap_tol[i]) for i in range(8)]
+    log(f"  (c) tokens against the float32 wave: (positions held, equal "
+        f"leading positions) by request {held}, the hold ending at the "
+        f"first float32 top-2 gap under 2 x the bound "
+        f"({gap_tol[0]:.4f} for request 0)")
+    spec = engine(ScriptedDrafter())
+    souts, slaunches, swall, _ = serve_wave(torch, ops, spec, ctx,
+                                            scripts=outs)
+    st = spec.spec_stats()
+    hold_launches(f"(c) bf16 speculative, forced-accept, {st['dispatches']} "
+                  f"dispatches", slaunches,
+                  {"paged_verify_attention": layers * st["dispatches"],
+                   "flash_attention": layers * spec.prefill_calls})
+    sheld = [positions_held(np, souts[i], outs[i], ctx["gaps"][i],
+                            gap_tol[i]) for i in range(8)]
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(souts, outs))
+    log(f"  (c) speculative against plain bf16: {same}/8 equal, (held, "
+        f"equal leading) {sheld}; acceptance {st['acceptance_rate']:.3f} "
+        f"(a row whose verify takes another token at a near-tie leaves the "
+        f"script's path, and the script's later drafts are rejected), "
+        f"{8 * steps / swall:.1f} tok/s ({swall:.3f} s)")
+    total = {k: launches[k] + slaunches[k] for k in launches}
+
+    # teacher forcing: decode and verify along (b)'s float32 tokens
+    f32_tokens = f32["tokens"]
+    forced = engine()
+    kept = KeptLogits(forced, f32_tokens)
+    fouts, flaunches, _, _ = serve_wave(torch, ops, forced, ctx, kept=kept)
+    hold_launches(f"(c) bf16 teacher-forced, {forced.steps} steps, "
+                  f"{forced.prefill_calls} chunks", flaunches,
+                  {"bgmv": 4 * layers * forced.steps,
+                   "paged_attention": layers * forced.steps,
+                   "flash_attention": layers * forced.prefill_calls})
+    decode = kept.by_request()
+    del kept
+    fspec = engine(ScriptedDrafter())
+    kept = KeptLogits(fspec, f32_tokens)
+    fsouts, fslaunches, _, _ = serve_wave(torch, ops, fspec, ctx,
+                                          scripts=f32_tokens, kept=kept)
+    fst = fspec.spec_stats()
+    hold_launches(f"(c) bf16 speculative teacher-forced, "
+                  f"{fst['dispatches']} dispatches", fslaunches,
+                  {"paged_verify_attention": layers * fst["dispatches"],
+                   "flash_attention": layers * fspec.prefill_calls})
+    verify = kept.by_request()
+    del kept
+    for label, got, z in (("decode", fouts, decode),
+                          ("verify", fsouts, verify)):
+        if not all(np.array_equal(a, b) for a, b in zip(got, f32_tokens)) \
+                or [len(x) for x in z] != [steps] * 8:
+            raise AssertionError(f"teacher-forced {label}: the tokens left "
+                                 f"the script or positions were not kept")
+    if fst["acceptance_rate"] != 1.0:
+        raise AssertionError(f"teacher-forced verify accepted "
+                             f"{fst['acceptance_rate']}")
+    own = [int((z.argmax(-1).cpu().numpy() == toks).sum())
+           for z, toks in zip(decode, f32_tokens)]
+    hold_bf16(f"teacher-forced decode, all {8 * steps} positions (prefill "
+              f"and {steps - 1} decode steps a request)",
+              bf16_worst(decode, f32["logits"], rel), rel)
+    hold_bf16(f"teacher-forced verify, all {8 * steps} positions (prefill "
+              f"and {fst['dispatches']} verify windows, acceptance 1.0)",
+              bf16_worst(verify, f32["logits"], rel), rel)
+    log(f"  (c) along the float32 tokens, bf16 decode's own argmax is the "
+        f"float32 token at {own} of {steps} positions by request "
+        f"({sum(own)}/{8 * steps})")
+    total = {k: total[k] + flaunches[k] + fslaunches[k] for k in total}
+    del decode, verify
+
+    # controls: wrong engines the bound must reject
+    n = 4
+    ids = sorted(ctx["trees"])
+    rotated = [ids[(ids.index(a) + 1) % len(ids)] for a in ctx["adapters"]]
+    zeroed = registry_of({aid: {t: dict(ad, B=torch.zeros_like(ad["B"]))
+                                for t, ad in tree.items()}
+                          for aid, tree in ctx["trees"].items()})
+    for label, reg, adapters in (("adapters rotated", registry, rotated),
+                                 ("every LoRA B zeroed", zeroed, None)):
+        ctl = engine(reg=reg)
+        kept = KeptLogits(ctl, [t[:n] for t in f32_tokens])
+        serve_wave(torch, ops, ctl, ctx, kept=kept, adapters=adapters,
+                   steps=n)
+        worst = bf16_worst(kept.by_request(), f32["logits"], rel)
+        ok = min(worst) > 1.0
+        log(f"  (c) control, {label}, teacher-forced for {n} positions: "
+            f"worst err/limit by request {[round(w, 3) for w in worst]}, "
+            f"{'outside the bound for every request ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the bf16 bound did not reject the "
+                                 f"control {label}: {worst}")
+        del kept
+    if any(total[k] <= 0 for k in SERVING_KERNELS):
+        raise AssertionError(f"a serving kernel had no bf16 launch: {total}")
+    p16, p32 = decode_p50_ms(np, rows), decode_p50_ms(np, ctx["plain_rows"])
+    log(f"  (c) bf16 against float32 (phase 4's unrecorded wave): decode "
+        f"step p50 {p16:.3f} ms against {p32:.3f} ms, "
+        f"{8 * steps / wall:.1f} tok/s against {ctx['tok_s']:.1f}; "
+        f"bf16 launches of the serving kernels (the controls' left out) "
+        f"{total}")
+    return {"launches": total, "p50": p16, "tok_s": 8 * steps / wall}
+
+
+def run_example(torch, np, ops, ctx) -> dict:
+    """(d) ``examples/serve_adapters_torch.py``'s four scenarios on phase
+    4's full-width weights, registry and adapters: 8/8 and 12/12 against
+    the oracles, the hot-swap taken, the speculative replay byte-identical
+    to plain 8/8; its files under build/obs/results/. The example gets
+    copies of the adapters in a registry of its own: its hot-swap scales
+    one adapter in place."""
+    from repro_torch.serve import AdapterRegistry
+    example = _serve_example()
+    dev = ctx["params"].embed.device
+    trees = copy.deepcopy(ctx["trees"])
+    registry = AdapterRegistry(ctx["cfg"], capacity=len(trees), device=dev)
+    for aid, tree in trees.items():
+        registry.register(aid, tree)
+    fx = example.Fixture(ctx["cfg"], ctx["params"], registry, trees, dev)
+    os.makedirs(OBS_DIR, exist_ok=True)
+    ops.reset_launches()
+    res, took = {}, {}
+    with contextlib.chdir(OBS_DIR):
+        for name, scenario in example.SCENARIOS.items():
+            t0 = time.perf_counter()
+            res[name] = scenario(fx)
+            took[name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    main, over = res["main"], res["oversubscribed"]
+    spec, obs = res["speculative"], res["observability"]
+    checks = {"main 8/8": main["match"] == 8,
+              "hot-swap taken": main["swap_loads"] == 1
+              and main["swap_equal"],
+              "oversubscribed 12/12": over["match"] == 12
+              and over["deferrals"] > 0,
+              "replay byte-identical 8/8": spec["exact"] == 8,
+              "trace files": all(os.path.isfile(os.path.join(OBS_DIR, f))
+                                 for f in obs["files"]),
+              "every serving kernel": all(launches[k] > 0
+                                          for k in SERVING_KERNELS)}
+    log(f"  (d) the example at full width: "
+        + ", ".join(f"{n} {took[n]:.1f} s" for n in took)
+        + f"; checks {checks}; launches {launches}")
+    if not all(checks.values()):
+        raise AssertionError(f"the serving example at full width: {checks}")
+    return {"launches": launches, "took": took}
+
+
+def run_serving_rest(torch, np, ctx) -> dict:
+    """Phase 14 on phase 4's weights and registry, after phase 5. Returns
+    the serving kernels' launches over its four parts."""
+    from repro_torch.kernels import ops
+    parts = {}
+    t0 = time.perf_counter()
+    parts["a"] = run_dense(torch, np, ops, ctx)
+    tb = time.perf_counter()
+    parts["b"] = run_checkpoint_adapters(torch, np, ops, ctx)
+    tc = time.perf_counter()
+    parts["c"] = run_bf16(torch, np, ops, ctx, parts["b"].pop("f32"))
+    gc.collect()                      # the bf16 copy: 5 GB
+    torch.cuda.empty_cache()
+    td = time.perf_counter()
+    parts["d"] = run_example(torch, np, ops, ctx)
+    te = time.perf_counter()
+    total = {name: sum(p["launches"][name] for p in parts.values())
+             for name in ops.LAUNCHES}
+    for name in ("lora_matmul_dx", "lora_matmul_grad_ab", "recon_agg"):
+        if total[name]:
+            raise AssertionError(f"serving launched {name}")
+    log(f"  phase 14 parts: (a) {tb - t0:.1f} s, (b) {tc - tb:.1f} s, (c) "
+        f"{td - tc:.1f} s, (d) {te - td:.1f} s; launches {total}; "
+        f"{device_line()}")
+    return {name: total[name] for name in SERVING_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -4890,6 +5496,14 @@ def main() -> int:
     # plain serving, phase 5 for the verify step, phase 6 for training
     launches = dict(ctx["launches"], paged_verify_attention=spec_launches[
         "paged_verify_attention"])
+    log("[14] the rest of single-device serving: full-width gemma-2b (the "
+        "dense ring cache, checkpoint-backed adapters, bf16, the serving "
+        "example)")
+    t0 = time.perf_counter()
+    # a second counted path for the serving kernels: phase 14's waves
+    for name, n in run_serving_rest(torch, np, ctx).items():
+        launches[name] += n
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     del ctx                           # Gemma-2B's weights: 10 GB
     gc.collect()                      # the engines hold reference cycles
     torch.cuda.empty_cache()

@@ -5,7 +5,9 @@ The reference keeps parameters as a nested dict of arrays: stacked
 arrays (``jax.tree.map(np.asarray, params)``), they become the port's
 modules here one to one, in the same orientation, so ``x @ W0`` is the
 same product on both sides; ``tree_to_numpy`` carries trained tensors
-back. Nothing here imports JAX.
+back. bfloat16 leaves (NumPy has no such type; the reference's arrive as
+``ml_dtypes`` arrays) cross as their 16-bit patterns. Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -20,7 +22,14 @@ from repro_torch.models.transformer import Transformer
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, copy=True))
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # the reference's bfloat16 leaves come as ml_dtypes arrays, which
+        # torch cannot take: carry their 16-bit patterns, as the
+        # checkpoint store does
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

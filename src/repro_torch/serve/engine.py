@@ -1,6 +1,7 @@
 """Multi-tenant serving engine: continuous batching over per-request LoRA,
-with a paged KV cache, chunked prefill and lossless speculative decode
-(port of the paged path of ``repro/serve/engine.py``).
+with a paged KV cache, chunked prefill and lossless speculative decode, or
+the dense ring cache (port of the single-device paths of
+``repro/serve/engine.py``).
 
 One decode step serves the whole batch. Each of the ``max_batch`` request
 rows carries its own adapter-slot index into the registry slabs; inside
@@ -26,6 +27,23 @@ drafts equal to the model's own greedy tokens plus the model's next token,
 so the tokens are those of plain decode whatever the drafter proposes.
 Pages past a row's next write position go back to the pool after every
 dispatch (``PagedKV.truncate``).
+
+``kv_mode="dense"`` is the reference's per-row ring cache (one ``max_seq``
+strip a row, ``models/common.py::init_kv_cache``) with token-at-a-time
+prefill: a row joins the decode batch at position 0 and is fed its prompt
+one token a step. Its insert drops a write at or past the ring instead of
+wrapping it (the row index is filtered, not clipped: a clipped index would
+alias onto the last slot), and the scheduler raises before a row can get
+there. Decode attention is the plain ``models/common.py::attention`` over
+the row's valid slots, outside any kernel, as in the reference; the LoRA
+projections still go through ``ops.bgmv``.
+
+Float32 or bfloat16: the weights, the registry's slabs and the KV cache
+take one dtype, as the kernels do for every float operand, and the engine
+refuses a mix (the reference promotes one). In bfloat16 every op rounds
+where the reference's does: norms, RoPE and attention compute in float32
+and cast back, the LoRA scale and delta are bfloat16, and the head product
+gives bfloat16 logits, whose argmax takes the first maximum on both sides.
 
 The reference scans layers with ``lax.scan`` inside jitted steps; here
 the steps are eager PyTorch with a Python loop over layers, and the
@@ -61,7 +79,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.common import _act, rope, sinusoidal_positions
+from repro_torch.models.common import (_act, attention, init_kv_cache, rope,
+                                       sinusoidal_positions)
 from repro_torch.models.transformer import layer_slice, norm
 from repro_torch.obs import NULL_RECORDER, SLO_TRACK, MetricsRegistry
 from repro_torch.serve.pages import PagedKV
@@ -109,6 +128,60 @@ def _apply_slab_lora(x, w0, slab, idx, alpha):
     return y + (scale[idx.long()][:, None, None] * lo).to(y.dtype)
 
 
+def _ring_rows(pos: torch.Tensor, slots: int) -> torch.Tensor:
+    """The rows whose position lies inside the ring, the only rows a dense
+    insert writes."""
+    return torch.nonzero((pos >= 0) & (pos < slots)).flatten()
+
+
+def _cache_insert_rows(lc, k_new, v_new, pos, rows=None):
+    """Per-row dense-ring insert, in place: row i's token goes to slot
+    pos[i]. k_new/v_new: (B, 1, Hkv, Dh), pos: (B,); ``rows`` is
+    ``_ring_rows(pos, slots)``, found here when not given.
+
+    A position at or past the ring is dropped, never wrapped (wrapping
+    overwrote the row's oldest live entries while the validity mask still
+    reported them current) and never clipped (a clipped index would alias
+    onto the last slot): its row is left out of the write. The scheduler
+    raises before this can happen (``step_batch``)."""
+    if rows is None:
+        rows = _ring_rows(pos, lc["k"].shape[1])
+    slot = pos[rows].long()
+    lc["k"][rows, slot] = k_new[rows, 0]
+    lc["v"][rows, slot] = v_new[rows, 0]
+    lc["pos"][rows, slot] = pos[rows].to(lc["pos"].dtype)
+    return lc
+
+
+class DenseKV:
+    """The dense ring cache (``models/common.py::init_kv_cache``: one
+    ``max_seq`` strip a row, ``k``/``v``/``pos`` stacked by layer) behind
+    the part of ``PagedKV``'s interface the scheduler shares with it:
+    ``pools``, ``nbytes``, ``row_capacity``, ``admit`` and ``release``.
+    Nothing is paged, so admission never waits; a request that takes a row
+    invalidates the row's ring in every layer (``pos`` -1, in place)."""
+
+    def __init__(self, num_layers: int, max_batch: int, max_seq: int,
+                 kv_heads: int, head_dim: int, dtype, device):
+        self.max_seq = int(max_seq)
+        self.pools = init_kv_cache(num_layers, max_batch, self.max_seq,
+                                   kv_heads, head_dim, dtype=dtype,
+                                   device=device)
+
+    def row_capacity(self) -> int:
+        return self.max_seq
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.pools.values())
+
+    def admit(self, row: int, n_pages: int = 0) -> bool:
+        self.pools["pos"][:, row] = -1
+        return True
+
+    def release(self, row: int) -> None:
+        """The ring stays as it is until the row is taken again."""
+
+
 def _layer_qkv(x, lp, slab, idx, pos, cfg: ModelConfig):
     """norm -> q/k/v projections with per-row LoRA -> heads + RoPE.
     x: (B, S, d), pos: (B, S) absolute positions."""
@@ -151,6 +224,21 @@ def _layer_out(x, o, lp, slab, idx, cfg: ModelConfig):
     if cfg.use_bias and "b2" in mp:
         y = y + mp["b2"]
     return x + y
+
+
+def _layer_decode_dense(x, lp, slab, lc, idx, pos, rows, cfg: ModelConfig):
+    """One token through one layer against the dense ring cache. rows: the
+    rows inside the ring (``_ring_rows``)."""
+    bsz = x.shape[0]
+    _, q, k, v = _layer_qkv(x, lp, slab, idx, pos[:, None], cfg)
+    _cache_insert_rows(lc, k, v, pos, rows)
+    # Each row sees exactly its own cached prefix (stale slots are pos -1,
+    # recycled rows were reset): the causal structure is in the mask.
+    valid = (lc["pos"] >= 0) & (lc["pos"] <= pos[:, None])
+    o = attention(q, lc["k"], lc["v"], causal=False, window=None,
+                  kv_positions=lc["pos"], kv_valid=valid)
+    o = o.reshape(bsz, 1, cfg.num_heads * cfg.resolved_head_dim)
+    return _layer_out(x, o, lp, slab, idx, cfg)
 
 
 def _layer_decode_paged(x, lp, slab, lc, idx, pos, lens, page, slot, tables,
@@ -222,10 +310,14 @@ class ServeEngine:
     dispatch over windows of ``spec_k + 1`` tokens; the tokens are those
     of plain decode.
 
+    ``kv_mode="dense"``: the per-row ring cache (one ``max_seq`` strip a
+    row, token-at-a-time prefill), the memory and latency baseline; no
+    drafter.
+
     ``device=None`` means CUDA; the params and the registry must live on
-    the engine's device. ``kv_mode="dense"``, ``mesh=`` and any dtype but
-    float32 (params, registry, ``cache_dtype``) are not ported yet and
-    raise ``NotImplementedError``.
+    the engine's device. The weights, the registry and ``cache_dtype`` are
+    all float32 or all bfloat16; a mix, another dtype and ``mesh=`` raise
+    ``NotImplementedError``.
     """
 
     def __init__(self, params, cfg: ModelConfig, registry, *,
@@ -241,19 +333,28 @@ class ServeEngine:
             raise NotImplementedError(
                 f"serving supports the dense transformer family, got "
                 f"{cfg.arch_type!r}")
-        if kv_mode != "paged":
-            raise NotImplementedError(f"kv_mode={kv_mode!r} is not ported")
+        if kv_mode not in ("paged", "dense"):
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        if drafter is not None and kv_mode != "paged":
+            raise ValueError(
+                "speculative decode needs the paged KV cache (rollback "
+                "is a page-table operation); kv_mode='dense' has no "
+                "draft-verify path")
         if drafter is not None and spec_k < 1:
             raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded serving is not ported")
-        # The kernels take one dtype for all float operands, and only
-        # float32 serving has been held against the oracle on the card.
-        dtypes = {"params": params.embed.dtype, "registry": registry.dtype,
-                  "cache_dtype": cache_dtype}
-        if any(dt != torch.float32 for dt in dtypes.values()):
-            raise NotImplementedError(f"only float32 serving is ported, got "
-                                      f"{dtypes}")
+        # The kernels take one dtype for all float operands, where the
+        # reference promotes a mix: refuse one rather than cast silently.
+        weights = {p.dtype for p in params.parameters()}
+        dtypes = {"params": weights.pop() if len(weights) == 1
+                  else sorted(map(str, weights)),
+                  "registry": registry.dtype, "cache_dtype": cache_dtype}
+        if not any(all(dt == want for dt in dtypes.values())
+                   for want in (torch.float32, torch.bfloat16)):
+            raise NotImplementedError(
+                f"serving takes the weights, the registry and cache_dtype "
+                f"all float32 or all bfloat16, got {dtypes}")
         self.device = resolve_device(device)
         for what, dev in (("params", params.embed.device),
                           ("registry", registry.device)):
@@ -265,6 +366,7 @@ class ServeEngine:
         self.registry = registry
         self.max_batch = int(max_batch)
         self.max_seq = int(max_seq)
+        self.kv_mode = kv_mode
         self.drafter = drafter
         self.spec_k = int(spec_k)
         # Observability: ``rec`` defaults to the no-op singleton (hot paths
@@ -280,23 +382,28 @@ class ServeEngine:
         # schedules by class).
         self.slo_ttft_s: Dict[str, float] = dict(slo_ttft_s or {})
         self._slo_classes: set = set()
-        self.page_size = int(page_size)
-        pages_per_row = -(-self.max_seq // self.page_size)
-        if num_pages is None:
-            num_pages = self.max_batch * pages_per_row
-        self.kv = PagedKV(cfg.num_layers, int(num_pages), self.page_size,
-                          pages_per_row, self.max_batch, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, dtype=cache_dtype,
-                          device=self.device, metrics=self.metrics,
-                          name=f"{self.name}.pages")
-        self.prefill_chunk = max(1, int(prefill_chunk))
-        # Per-layer views, made once: weights, slabs and pools are only
-        # ever written in place, so the views stay current.
         L = cfg.num_layers
+        if kv_mode == "paged":
+            self.page_size = int(page_size)
+            pages_per_row = -(-self.max_seq // self.page_size)
+            if num_pages is None:
+                num_pages = self.max_batch * pages_per_row
+            self.kv = PagedKV(L, int(num_pages), self.page_size,
+                              pages_per_row, self.max_batch,
+                              cfg.num_kv_heads, cfg.resolved_head_dim,
+                              dtype=cache_dtype, device=self.device,
+                              metrics=self.metrics, name=f"{self.name}.pages")
+            self.prefill_chunk = max(1, int(prefill_chunk))
+        else:
+            self.kv = DenseKV(L, self.max_batch, self.max_seq,
+                              cfg.num_kv_heads, cfg.resolved_head_dim,
+                              dtype=cache_dtype, device=self.device)
+        # Per-layer views, made once: weights, slabs and the KV state are
+        # only ever written in place, so the views stay current.
         self._layers = [params.layer(i) for i in range(L)]
         self._slabs = [layer_slice(registry.slabs(), i) for i in range(L)]
-        self._pools = [{n: pool[i] for n, pool in self.kv.pools.items()}
-                       for i in range(L)]
+        self._kv_layers = [{n: t[i] for n, t in self.kv.pools.items()}
+                           for i in range(L)]
         self._final_norm = params.final_norm.as_dict()
         self._queue: deque = deque()
         self._rows: List[Optional[dict]] = [None] * self.max_batch
@@ -370,6 +477,7 @@ class ServeEngine:
     # -- introspection ------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
+        """Device bytes held by the KV state (pool or dense cache)."""
         return self.kv.nbytes()
 
     def row_capacity(self) -> int:
@@ -388,6 +496,17 @@ class ServeEngine:
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return norm(x, self._final_norm) @ self.params.head()
+
+    @torch.no_grad()
+    def _dense_step(self, idx, tokens, pos) -> torch.Tensor:
+        """tokens: (B, 1), pos: (B,), idx: (B,) slab slots -> logits
+        (B, V), against the dense ring cache."""
+        x = self._embed(tokens, pos[:, None])
+        rows = _ring_rows(pos, self.max_seq)
+        for lp, slab, lc in zip(self._layers, self._slabs, self._kv_layers):
+            x = _layer_decode_dense(x, lp, slab, lc, idx, pos, rows,
+                                    self.cfg)
+        return self._logits(x[:, 0, :])
 
     @torch.no_grad()
     def _decode_step(self, tables, idx, tokens, pos, lens,
@@ -412,7 +531,7 @@ class ServeEngine:
         slot = (pos % ps).long()
         n = self.cfg.num_layers if layers is None else int(layers)
         for lp, slab, lc in zip(self._layers[:n], self._slabs[:n],
-                                self._pools[:n]):
+                                self._kv_layers[:n]):
             x = _layer_decode_paged(x, lp, slab, lc, idx, pos, lens, page,
                                     slot, tables, self.cfg, ps)
         return self._logits(x[:, 0, :])
@@ -440,7 +559,7 @@ class ServeEngine:
                            self.kv.trash).long()
         slot = (tpos % ps).long()
         lens = torch.where(nv > 0, pos0 + nv, 0).to(torch.int32)
-        for lp, slab, lc in zip(self._layers, self._slabs, self._pools):
+        for lp, slab, lc in zip(self._layers, self._slabs, self._kv_layers):
             x = _layer_verify_paged(x, lp, slab, lc, idx, tpos, lens, page,
                                     slot, tables, pos0, self.cfg, ps)
         return self._logits(x)
@@ -460,7 +579,7 @@ class ServeEngine:
         page = table_row[0].long()[torch.clamp(tpos[0] // ps, max=p - 1)]
         page = torch.where(ar < nvalid, page, self.kv.trash)
         slot = tpos[0] % ps
-        for lp, slab, lc in zip(self._layers, self._slabs, self._pools):
+        for lp, slab, lc in zip(self._layers, self._slabs, self._kv_layers):
             x = _layer_prefill_paged(x, lp, slab, lc, idx, tpos, page, slot,
                                      table_row, pos0, self.cfg, ps)
         return x
@@ -478,9 +597,11 @@ class ServeEngine:
             raise ValueError("empty prompt")
         total = prompt.size + max_new_tokens
         if total > self.row_capacity():
+            what = (f"{self.kv.pages_for(total)} pages" if
+                    self.kv_mode == "paged" else f"max_seq {self.max_seq}")
             raise ValueError(
                 f"prompt+generation {total} exceeds per-request capacity "
-                f"{self.row_capacity()} ({self.kv.pages_for(total)} pages)")
+                f"{self.row_capacity()} ({what})")
         if not self.registry.has(adapter_id):
             raise KeyError(f"unknown adapter {adapter_id!r}")
         uid = f"req{self._uid}"
@@ -539,15 +660,17 @@ class ServeEngine:
                      if self._rows[r] is None]
         while self._queue and free_rows:
             head = self._queue[0]
-            # Page-gated admission: cover the prompt plus the first
-            # generated token; later growth extends.
-            need = self.kv.pages_for(head["prompt"].size + 1)
-            if self.kv.allocator.free_count < need:
-                self.deferrals += 1
-                if self.rec.enabled:
-                    self.rec.instant("defer", self._track(head),
-                                     need_pages=int(need))
-                break   # FCFS: wait for pages, don't starve the head
+            need = 0
+            if self.kv_mode == "paged":
+                # Page-gated admission: cover the prompt plus the first
+                # generated token; later growth extends.
+                need = self.kv.pages_for(head["prompt"].size + 1)
+                if self.kv.allocator.free_count < need:
+                    self.deferrals += 1
+                    if self.rec.enabled:
+                        self.rec.instant("defer", self._track(head),
+                                         need_pages=int(need))
+                    break   # FCFS: wait for pages, don't starve the head
             row = free_rows[0]
             try:
                 slot = self.registry.acquire(head["adapter"])
@@ -566,7 +689,8 @@ class ServeEngine:
                 raise RuntimeError(
                     f"page accounting violated: admission of row {row} "
                     f"failed after the free-count check")
-            self._prefill_row(row, req)
+            if self.kv_mode == "paged":   # dense rows prefill in decode
+                self._prefill_row(row, req)
         return admitted
 
     def _prefill_row(self, row: int, req: dict) -> None:
@@ -671,18 +795,20 @@ class ServeEngine:
         """Admit (+prefill), page, run one decode (or draft-verify) step,
         harvest/recycle."""
         admitted = self._admit()
-        look = None
-        if self.drafter is not None:
-            look = {i: self._spec_window(r)
-                    for i, r in enumerate(self._rows) if r is not None}
-        self._ensure_pages(look)
+        if self.kv_mode == "paged":
+            look = None
+            if self.drafter is not None:
+                look = {i: self._spec_window(r)
+                        for i, r in enumerate(self._rows) if r is not None}
+            self._ensure_pages(look)
         active = [(i, r) for i, r in enumerate(self._rows) if r is not None]
         if not active:
             # admitted rows may have finished inside _admit (prefill +
             # max_new=1): that is progress, not a stall
             if self._queue and admitted == 0:
-                if self.kv.allocator.free_count < self.kv.pages_for(
-                        self._queue[0]["prompt"].size + 1):
+                if self.kv_mode == "paged" and \
+                        self.kv.allocator.free_count < self.kv.pages_for(
+                            self._queue[0]["prompt"].size + 1):
                     raise RuntimeError(
                         f"{len(self._queue)} queued requests but the page "
                         f"pool is exhausted and no row is active")
@@ -699,6 +825,11 @@ class ServeEngine:
         lens = np.zeros((self.max_batch,), np.int32)
         for i, req in active:
             t = req["t"]
+            if self.kv_mode == "dense" and t >= self.max_seq:
+                raise RuntimeError(
+                    f"row {i} reached position {t} >= max_seq "
+                    f"{self.max_seq}: the dense ring would wrap and "
+                    f"corrupt attention (writes are dropped instead)")
             tokens[i, 0] = req["prompt"][t] if t < req["prompt"].size \
                 else req["out"][-1]
             pos[i] = t
@@ -706,12 +837,16 @@ class ServeEngine:
             lens[i] = t + 1
         rec = self.rec
         t0 = rec.now() if rec.enabled else 0.0
-        perm, inv = self._slot_order(idx, lens > 0)
         dev = self._to_device
         with rec.annotation("serve.decode_step"):
-            logits = self._decode_step(
-                dev(self.kv.tables[perm]), dev(idx[perm]), dev(tokens[perm]),
-                dev(pos[perm]), dev(lens[perm]))
+            if self.kv_mode == "paged":
+                perm, inv = self._slot_order(idx, lens > 0)
+                logits = self._decode_step(
+                    dev(self.kv.tables[perm]), dev(idx[perm]),
+                    dev(tokens[perm]), dev(pos[perm]), dev(lens[perm]))
+            else:
+                inv = slice(None)
+                logits = self._dense_step(dev(idx), dev(tokens), dev(pos))
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy(
                 )[inv]
         if rec.enabled:

@@ -13,7 +13,10 @@ layout per target, layer-major so a layer loop slices it for free:
 Loads and hot-swaps write the slot in place (the reference rebuilt the
 arrays with ``.at[slot].set``), so every view of the slabs stays valid.
 Slot replacement is LRU over un-pinned slots; ``acquire`` pins and
-``release`` unpins. Slabs are built from the sorted target order.
+``release`` unpins. Slabs are built from the sorted target order. Sources
+are in-memory trees (``register``) or lazy checkpoint references
+(``register_checkpoint``, read through ``checkpoint/store.py`` onto the
+registry's device), reloaded after an eviction.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf_lib
@@ -62,6 +66,17 @@ class AdapterRegistry:
         mutating it to push new values into a live slot."""
         self._validate(adapter_id, tree)
         self._sources[adapter_id] = lambda: tree
+
+    def register_checkpoint(self, adapter_id: str, ckpt_dir: str,
+                            step: Optional[int] = None) -> None:
+        """Lazy source backed by the checkpoint store: nothing is read
+        until the adapter is first acquired, or re-admitted after an
+        eviction. Either package's checkpoints load."""
+        def load() -> LoraTree:
+            tree, _meta = store.restore(ckpt_dir, step, device=self.device)
+            self._validate(adapter_id, tree)
+            return tree
+        self._sources[adapter_id] = load
 
     def _validate(self, adapter_id: str, tree: LoraTree) -> None:
         if set(tree) != set(self._specs):
@@ -147,6 +162,16 @@ class AdapterRegistry:
         """The slab tree the decode and prefill steps read."""
         return self._slabs
 
+    def slot_of(self, adapter_id: str) -> Optional[int]:
+        return self._lru.get(adapter_id)
+
     def resident(self):
         """Resident adapter ids, least recently used first."""
         return list(self._lru)
+
+    def slot_tree(self, adapter_id: str) -> LoraTree:
+        """A copy of an adapter's slab slot (layer-major, slab rank), to
+        compare with its source."""
+        slot = self._lru[adapter_id]
+        return {t: {k: v[:, slot].clone() for k, v in slab.items()}
+                for t, slab in self._slabs.items()}

@@ -1,8 +1,9 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's examples ``examples/lm_pretrain_torch.py`` and
-``examples/fed_finetune_torch.py`` import neither JAX nor
-anything of the reference package ``repro``, and the port's entry points
-refuse to run on a missing GPU unless the caller asks for the CPU."""
+port's examples ``examples/lm_pretrain_torch.py``,
+``examples/fed_finetune_torch.py`` and ``examples/serve_adapters_torch.py``
+import neither JAX nor anything of the reference package ``repro``, and the
+port's entry points refuse to run on a missing GPU unless the caller asks
+for the CPU."""
 import ast
 import importlib.util
 import inspect
@@ -18,7 +19,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = [ROOT / "examples" / "lm_pretrain_torch.py",
-            ROOT / "examples" / "fed_finetune_torch.py"]
+            ROOT / "examples" / "fed_finetune_torch.py",
+            ROOT / "examples" / "serve_adapters_torch.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -178,6 +180,23 @@ def test_fed_example_refuses_a_missing_gpu_without_device_cpu():
                       example.HierarchicalTopology)
     assert example.parse_args(["--device", "cpu"]).device == "cpu"
     assert isinstance(args, argparse.Namespace)
+
+
+def test_serve_example_refuses_a_missing_gpu_without_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None legitimately means it")
+    from repro_torch.configs import get_reduced
+    spec = importlib.util.spec_from_file_location("serve_adapters_torch",
+                                                  EXAMPLES[2])
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example.make_fixture(get_reduced("gemma-2b"))
+    assert example.parse_args([]).device is None
+    fx = example.make_fixture(get_reduced("gemma-2b"), "cpu")   # asked for
+    assert fx.params.embed.device.type == fx.registry.device.type == "cpu"
 
 
 def test_federated_trainers_default_to_no_remat_as_the_reference_does():

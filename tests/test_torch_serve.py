@@ -8,6 +8,8 @@ versions here; the reference's runs both its plain path and its Pallas
 kernels in interpret mode (``use_pallas=True``). Greedy tokens and
 scheduler counts must be equal; logits agree to float32 summation order.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,16 +249,50 @@ def test_registry_slabs_after_register_evict_and_hot_swap(fx):
 
 
 def test_engine_rejects_unported_modes_and_bad_requests(fx):
+    """``kv_mode="dense"`` and bfloat16 serving (weights, registry and
+    cache all bfloat16) are taken; a mix of float32 and bfloat16, another
+    float type, weights of two dtypes and ``mesh=`` still raise
+    ``NotImplementedError`` naming what was given; bad requests raise in
+    both cache modes."""
     _, treg = fx.registries()
-    for kw in ({"kv_mode": "dense"}, {"mesh": object()},
-               {"cache_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu", **kw)
-    eng = ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu", max_seq=8,
-                      page_size=4)
-    with pytest.raises(ValueError):
-        eng.submit(np.arange(3, 9), "client0", max_new_tokens=4)  # > 8
-    with pytest.raises(ValueError):
-        eng.submit([], "client0", max_new_tokens=2)
-    with pytest.raises(KeyError):
-        eng.submit([3, 4], "nobody", max_new_tokens=2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tree = _np_tree(fx.jparams)
+    params = {f32: fx.tparams,
+              bf16: interop.params_from_jax(tree, fx.tcfg, device="cpu",
+                                            dtype=bf16)}
+    regs = {f32: treg, bf16: AdapterRegistry(fx.tcfg, dtype=bf16,
+                                             device="cpu")}
+    for kv_mode in ("paged", "dense"):
+        for dt in (f32, bf16):
+            eng = ServeEngine(params[dt], fx.tcfg, regs[dt], device="cpu",
+                              cache_dtype=dt, kv_mode=kv_mode)
+            assert eng.kv_mode == kv_mode
+    for p_dt, r_dt, c_dt in itertools.product((f32, bf16), repeat=3):
+        if p_dt == r_dt == c_dt:
+            continue
+        with pytest.raises(NotImplementedError, match="bfloat16") as err:
+            ServeEngine(params[p_dt], fx.tcfg, regs[r_dt], device="cpu",
+                        cache_dtype=c_dt)
+        for what in ("params", "registry", "cache_dtype"):
+            assert what in str(err.value)
+    f16 = torch.float16
+    with pytest.raises(NotImplementedError):
+        ServeEngine(interop.params_from_jax(tree, fx.tcfg, device="cpu",
+                                            dtype=f16), fx.tcfg,
+                    AdapterRegistry(fx.tcfg, dtype=f16, device="cpu"),
+                    device="cpu", cache_dtype=f16)
+    two = interop.params_from_jax(tree, fx.tcfg, device="cpu")
+    two.embed.data = two.embed.data.to(bf16)
+    with pytest.raises(NotImplementedError, match="params"):
+        ServeEngine(two, fx.tcfg, regs[bf16], device="cpu", cache_dtype=bf16)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu", mesh=object())
+    for kv_mode in ("paged", "dense"):
+        eng = ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu",
+                          max_seq=8, page_size=4, kv_mode=kv_mode)
+        with pytest.raises(ValueError):
+            eng.submit(np.arange(3, 9), "client0", max_new_tokens=4)  # > 8
+        with pytest.raises(ValueError):
+            eng.submit([], "client0", max_new_tokens=2)
+        with pytest.raises(KeyError):
+            eng.submit([3, 4], "nobody", max_new_tokens=2)

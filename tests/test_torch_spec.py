@@ -484,7 +484,7 @@ def test_spec_constructor_and_drafter_errors(fx):
     with pytest.raises(ValueError, match="spec_k"):
         ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu",
                     drafter=NGramDrafter(), spec_k=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="paged"):
         ServeEngine(fx.tparams, fx.tcfg, treg, device="cpu",
                     kv_mode="dense", drafter=NGramDrafter())
     with pytest.raises(ValueError):
