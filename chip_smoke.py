@@ -29,7 +29,9 @@ Phases, each of which raises on failure:
    token per row; lora_matmul's forward, dx and dA/dB also at the LM
    training path's shapes (M 1024 and 2048 through Gemma-2B's 2048 -> 2048
    and 2048 -> 256 projections), at two ragged shapes (one taking the
-   kernels with element loads) and at M = 1 on Gemma-2B's widths, each
+   kernels with element loads), at M 8 through OLMoE-1B-7B's decode
+   projections (2048 -> 2048, timed with its bound) and at M = 1 on
+   Gemma-2B's widths, each
    at the other split count and with an operand off 16-byte alignment,
    with each plan and the kernels' registers, the same bits on
    a second call, and cuBLAS's base products timed beside them; its
@@ -200,7 +202,27 @@ Phases, each of which raises on failure:
    ``examples/serve_adapters_torch.py``'s four scenarios at full width
    (8/8 and 12/12 against the oracles, the hot-swap taken, the replay
    byte-identical to plain 8/8);
-15. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+15. the mixture-of-experts family on full-width OLMoE-1B-7B (16 layers,
+   64 experts of 1024, top-8, 6.92 B parameters; run after phase 13, with
+   the earlier weights freed): (a) at 2 layers, one ``moe_ffn`` of 8 x 64
+   tokens and one LM ``train`` step (phase 11 (a)'s
+   ``lm_step_against_cpu``, its limits, 16/8/8 launches) on the card
+   against the CPU, every routing call's top-k indices and keep masks
+   equal but for named near-ties (``MOE_NEAR_TIE``); (b)
+   ``make_cohort_train`` at full depth, backbone frozen, 4 clients (ranks
+   2/4/6/8 on q, k, v, o) x 4 steps of 16 x 64 bigram tokens: finite
+   losses, aux > 0, every client's factors moved and masked directions
+   unchanged, 64 of each lora kernel a step, step p50, tok/s, dropped
+   slots, peak memory, and 2 profiled steps with the MoE forward's device
+   time apart; (c) decode through ``model.init_cache`` and
+   ``decode_step``: 8 prompts of 32 tokens teacher-forced at capacity
+   factor 8.0 against ``forward`` (``MOE_DECODE_REL``, routing held as in
+   (a)), then 16 greedy steps at 1.25, twice for the same bits, 64
+   ``lora_matmul`` a step, the dropped share at capacity 2; (d) the LM
+   example's ``train`` at 4 layers (1.88 B parameters, every one trained),
+   30 steps of 16 x 64: finite losses, aux > 0, the last 5 below the
+   first, 32/16/16 launches a step, step p50 and peak memory;
+16. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -858,11 +880,15 @@ def verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1, ps):
 
 
 # (label, M, K, N, R): the training, pretraining and LM training paths'
-# shapes, two ragged ones (the second with K and N not multiples of 4: the
-# kernels with element loads) and the merged-weight oracle's M = 1 on
-# Gemma-2B's widths. The first is the kernels line's; every shape whose M
-# is in TIMED_M is timed (dA/dB too, past the first).
+# shapes (OLMoE-1B-7B's q, k, v and o in training are Gemma-2B's q and o:
+# 2048 -> 2048 at M 1024), two ragged ones (the second with K and N not
+# multiples of 4: the kernels with element loads), OLMoE-1B-7B's decode
+# step (M 8) and the merged-weight oracle's M = 1 on Gemma-2B's widths.
+# The first is the kernels line's; every shape whose M is in TIMED_M is
+# timed (dA/dB too, past the first), and the forward at every M in
+# DECODE_M.
 TIMED_M = (512, 1024, 2048)
+DECODE_M = (1, 8)
 LORA_SHAPES = [
     ("training: 16 x 32 tokens through a q or v projection of "
      "RoBERTa-large", 512, 1024, 1024, 8),
@@ -878,6 +904,8 @@ LORA_SHAPES = [
      "of Gemma-2B", 2048, 2048, 256, 8),
     ("ragged", 500, 1000, 1000, 6),
     ("ragged, element loads", 37, 999, 1001, 5),
+    ("decode: 8 rows through a q, k, v or o projection of OLMoE-1B-7B",
+     8, 2048, 2048, 8),
     ("M = 1, Gemma-2B q and o (oracle)", 1, 2048, 2048, 8),
     ("M = 1, Gemma-2B k and v (oracle)", 1, 2048, 256, 8),
 ]
@@ -1079,11 +1107,14 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                 rows.setdefault("lora_matmul", {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, **bd})
-            elif dtype == torch.float32 and m == 1:
+            elif dtype == torch.float32 and m in DECODE_M:
                 plain_ms = time_ms(lambda: lora_mod.lora_matmul_parts(
                     x, w0, a, b, scale))
+                bd = bound(nbytes(x, w0, a, b, got, xa),
+                           2 * m * k * n + 2 * m * r * (k + n), dtype)
                 log(f"    ms {time_ms(call):.4f} plain_ms {plain_ms:.4f} "
-                    f"cuBLAS x @ W0 alone {time_ms(lambda: x @ w0):.4f}")
+                    f"cuBLAS x @ W0 alone {time_ms(lambda: x @ w0):.4f} "
+                    f"bound_ms {bd['bound_ms']:.5f} ({bd['bound_by']})")
             if dtype != torch.float32:
                 continue            # the backward takes float32 only
             dy = torch.randn(m, n, generator=gen, device="cuda")
@@ -5451,6 +5482,579 @@ def run_population_phase(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mixture-of-experts family on full-width OLMoE-1B-7B
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+# Routing on the card against the CPU, and in decode against forward: the
+# two sides' router probabilities differ by float32 rounding (~1e-7), so a
+# token's top-k set may differ only where its k-th and (k+1)-th
+# probabilities are closer than this (phase 4's near-tie rule); every such
+# place is named in the log, any other difference fails.
+MOE_NEAR_TIE = 1e-5
+# (a) one moe_ffn at 8 x 64 tokens (one group of 512, capacity 80), layer
+# 0's weights: y held per element to MOE_Y_REL of max|y| (float32 sums of
+# d = 2048 products through the router, we1 and we3 and ff = 1024 through
+# we2, in another order), aux to MOE_AUX_REL
+MOE_FFN_SHAPE = (8, 64)
+MOE_Y_REL = 1e-5
+MOE_AUX_REL = 1e-5
+# (b) HLoRA fine-tuning at full depth: 4 clients, 4 local steps each of
+# 16 x 64 bigram tokens (one group of 1024, capacity 160), backbone frozen
+MOE_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=16, seq=64)
+MOE_PROFILED = 2
+# (c) decode at full depth: 8 prompts of 32 tokens teacher-forced at
+# capacity factor 8.0 (no slot dropped in forward's group of 256 or in a
+# decode step's group of 8), every position's logits held to forward's
+# within MOE_DECODE_REL of the logits' largest magnitude: decode and
+# forward sum the same float32 products in other GEMM shapes (M 8 against
+# M 256; attention over the cache against the whole sequence), ~1e-6
+# relative a layer over 16 layers, far under the reference test's 2e-3
+# (tests/test_models.py); then 16 greedy steps at the config's own 1.25
+# (capacity 2 a step), twice for the same bits
+MOE_DECODE = dict(rows=8, prompt=32, greedy=16, capacity_factor=8.0)
+MOE_DECODE_REL = 1e-4
+# (d) the LM example's train at full width, 4 layers, every parameter:
+# 30 steps of 16 x 64 tokens at the example's lr (its warmup takes 20)
+MOE_LM = dict(layers=4, steps=30, batch=16, seq=64, lr=3e-3, q_chunk=64)
+
+
+class RouteLog:
+    """Wraps ``moe.route`` while in use: every call's routing (top-k
+    indices, keep mask and each token's gap between its k-th and (k+1)-th
+    router probability, recomputed from the same inputs, copied to the
+    host, and the device it ran on, when ``keep`` is set) and, on the
+    device, the slots dropped and routed."""
+
+    def __init__(self, torch, moe_lib, keep: bool):
+        self.torch, self.moe, self.keep = torch, moe_lib, keep
+        self.calls, self.devices, self.dropped, self.slots = [], [], 0, 0
+
+    def __enter__(self):
+        route = self.orig = self.moe.route
+
+        def logged(xg, router, cfg):
+            r = route(xg, router, cfg)
+            self.dropped = self.dropped + (~r.keep).sum()
+            self.slots += r.keep.numel()
+            if self.keep:
+                k = cfg.experts_per_token
+                srt = self.torch.softmax(
+                    xg.detach().float() @ router.detach().float(),
+                    dim=-1).sort(dim=-1, descending=True).values
+                self.calls.append((r.top_idx.cpu(), r.keep.cpu(),
+                                   (srt[..., k - 1] - srt[..., k]).cpu()))
+                self.devices.append(r.keep.device.type)
+            return r
+
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def drop_share(self) -> float:
+        return float(self.dropped) / max(self.slots, 1)
+
+
+def routing_held(label, got, want) -> list:
+    """Each call's top-k indices and keep mask in ``got`` against ``want``
+    (the same calls in the same order): equal, except at tokens whose
+    top-k gap on the ``want`` side is under MOE_NEAR_TIE, which are named;
+    a group with such a token is not held on its keep mask, which follows
+    from the indices. Returns the near-tie places (call, group, token)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} routing calls against "
+                             f"{len(want)}")
+    ties = []
+    for c, ((gi, gk, _), (wi, wk, wgap)) in enumerate(zip(got, want)):
+        differ = (gi != wi).any(-1)                        # (G, g)
+        near = differ & (wgap < MOE_NEAR_TIE)
+        if bool((differ & ~near).any()):
+            g, t = [int(v) for v in (differ & ~near).nonzero()[0]]
+            raise AssertionError(
+                f"{label}: call {c} routes token {t} of group {g} to "
+                f"{gi[g, t].tolist()} against {wi[g, t].tolist()} at a top-k "
+                f"gap of {float(wgap[g, t]):.3e} (>= {MOE_NEAR_TIE:.0e})")
+        ties += [(c, int(g), int(t)) for g, t in near.nonzero().tolist()]
+        held = ~near.any(-1)                               # groups held
+        if not bool((gk[held] == wk[held]).all()):
+            raise AssertionError(f"{label}: call {c}: keep masks differ "
+                                 f"with equal indices")
+    log(f"  {label}: top-k indices and keep masks equal over {len(want)} "
+        f"calls; near-ties (gap < {MOE_NEAR_TIE:.0e}; call, group, token) "
+        f"{ties or 'none'}; smallest gap "
+        f"{min(float(w[2].min()) for w in want):.3e}")
+    return ties
+
+
+def moe_ffn_against_cpu(torch, cfg) -> None:
+    """(a) one ``moe_ffn`` of 8 x 64 random tokens through one layer of
+    full-width weights (seed 0 on the CPU, copied across): y, aux, the
+    routing."""
+    from repro_torch.models import moe as moe_lib
+
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v[0] for k, v in moe_lib.init_moe_params(
+        gen, cfg, 1, device="cpu").items()}
+    x = torch.randn(*MOE_FFN_SHAPE, cfg.d_model, generator=gen)
+    res = {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        with RouteLog(torch, moe_lib, keep=True) as rl:
+            t0 = time.perf_counter()
+            y, aux = moe_lib.moe_ffn(x.to(dev), {k: v.to(dev) for k, v in
+                                                 p.items()}, cfg)
+            torch.cuda.synchronize()
+            res[side] = (y.cpu(), float(aux), rl.calls, rl.drop_share(),
+                         time.perf_counter() - t0)
+    (yc, ac, rc, dc, tc), (yg, ag, rg, dg, tg) = res["cpu"], res["card"]
+    g = moe_lib.group_size(cfg, x.shape[0] * x.shape[1])
+    log(f"  (a) moe_ffn, {MOE_FFN_SHAPE[0]} x {MOE_FFN_SHAPE[1]} tokens (one "
+        f"group of {g}, capacity {moe_lib.capacity(cfg, g)}), layer 0 of "
+        f"full-width weights: card {tg * 1e3:.1f} ms, cpu {tc * 1e3:.0f} ms; "
+        f"dropped slots card {dg:.4f}, cpu {dc:.4f}")
+    routing_held("(a) moe_ffn routing, card against cpu", rg, rc)
+    compare_scaled("(a) moe_ffn y, card against cpu", yg, yc, MOE_Y_REL,
+                   "float32 sums of 2048 and 1024 products in another order")
+    rel = abs(ag - ac) / abs(ac)
+    log(f"  (a) aux card {ag:.7f} cpu {ac:.7f}: rel {rel:.2e} (<= "
+        f"{MOE_AUX_REL:.0e}) {'ok' if rel <= MOE_AUX_REL else 'FAIL'}")
+    if not (rel <= MOE_AUX_REL and ac > 0):
+        raise AssertionError(f"(a) aux {ag} against {ac}")
+
+
+def moe_lm_step_against_cpu(torch, example, cfg) -> None:
+    """(a) phase 11's ``lm_step_against_cpu`` on OLMoE-1B-7B's full width
+    at 2 layers (its limits, launches 16/8/8), with every ``route`` call of
+    the two sides held against each other. Returns the card's
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
+
+    with RouteLog(torch, moe_lib, keep=True) as rl:
+        lm_step_against_cpu(torch, example, cfg)
+    # the card's step was the last to run: its launches
+    launches = {name: ops.LAUNCHES[name] for name in (
+        "lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+    side = {dev: [c for c, d in zip(rl.calls, rl.devices) if d == dev]
+            for dev in ("cpu", "cuda")}
+    routing_held("(a) LM step routing (the forward and remat's "
+                 "recomputation, every layer), card against cpu",
+                 side["cuda"], side["cpu"])
+    return launches
+
+
+def _moe_steps_hooked(torch, ops, client_mod, model_lib, steps: list):
+    """Hooks around ``loss_and_grads`` and ``loss_fn``: each step's start
+    (after a synchronize), loss, aux and launches go to ``steps``.
+    Returns the undo."""
+    grad_step, loss_fn = client_mod.loss_and_grads, model_lib.loss_fn
+    aux = []
+
+    def hooked_loss(*args, **kw):
+        out = loss_fn(*args, **kw)
+        aux.append(out[1]["aux"].detach())
+        return out
+
+    def hooked(*args, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.reset_launches()
+        loss, grads = grad_step(*args, **kw)
+        steps.append(dict(start=start, loss=float(loss),
+                          aux=float(aux[-1]), launches=dict(ops.LAUNCHES)))
+        return loss, grads
+
+    client_mod.loss_and_grads, model_lib.loss_fn = hooked, hooked_loss
+
+    def undo():
+        client_mod.loss_and_grads, model_lib.loss_fn = grad_step, loss_fn
+    return undo
+
+
+def moe_group(key: str) -> str:
+    """Device time groups of a MoE step: ``train_group``'s, and of the
+    rest the dispatch and combine (index, scatter, gather, cat) and the
+    routing (sort, softmax, cumsum, one-hot)."""
+    g = train_group(key)
+    if g != "other":
+        return g
+    if any(k in key for k in ("index", "scatter", "gather", "Cat")):
+        return "dispatch and combine"
+    if any(k in key for k in ("sort", "Sort", "SoftMax", "softmax", "scan")):
+        return "routing"
+    return "other"
+
+
+def moe_finetune(torch, np, cfg, params) -> dict:
+    """(b) ``make_cohort_train`` at full depth: 4 clients (ranks 2/4/6/8 on
+    q, k, v, o), 4 steps each, backbone frozen. Returns the lora kernels'
+    launches."""
+    from repro_torch.core.lora import make_rank_mask
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.fed import (SimConfig, client as client_mod,
+                                 make_cohort_train, make_local_train,
+                                 split_adapters, split_head)
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import adamw, tree_map
+
+    ranks, n_steps = MOE_TUNE["ranks"], MOE_TUNE["steps"]
+    L, r_max = cfg.num_layers, cfg.lora.r_max
+    lr = SimConfig().lr
+    frozen, head = split_head(params)
+    factors, _ = split_adapters(params.lora)
+    trainable = tree_map(lambda t: torch.stack([t] * len(ranks)),
+                         {"factors": factors, "head": head})
+    masks = {t: torch.stack([make_rank_mask(r, r_max, device="cuda").expand(
+        L, r_max) for r in ranks]) for t in cfg.lora.targets}
+    rows = len(ranks) * n_steps * MOE_TUNE["batch"]
+    lm = make_bigram_lm(rows, MOE_TUNE["seq"], LM_DATA_VOCAB, seed=3)
+    data = {k: torch.from_numpy(v).reshape(
+        len(ranks), n_steps, MOE_TUNE["batch"], MOE_TUNE["seq"]).to("cuda")
+        for k, v in lm.items()}
+    g = moe_lib.group_size(cfg, MOE_TUNE["batch"] * MOE_TUNE["seq"])
+    # one unmeasured step (cuBLAS, the kernels' first calls)
+    make_local_train(cfg, adamw(lr), device="cuda")(
+        frozen, tree_map(lambda t: t[0], trainable),
+        tree_map(lambda t: t[0], masks), {k: v[0, :1] for k, v in
+                                          data.items()})
+    steps = []
+    undo = _moe_steps_hooked(torch, ops, client_mod, model_lib, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with RouteLog(torch, moe_lib, keep=False) as rl:
+            trained, losses = make_cohort_train(cfg, adamw(lr),
+                                                device="cuda")(
+                frozen, trainable, masks, data)
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = 4 * L                        # q, k, v and o in every layer
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect.update(lora_matmul=per, lora_matmul_dx=per,
+                  lora_matmul_grad_ab=per)
+    bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
+    walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    walls.append(end - steps[-1]["start"])
+    moved = []
+    for c, r in enumerate(ranks):
+        for t in cfg.lora.targets:
+            a1, b1 = (trained["factors"][t][k][c] for k in ("A", "B"))
+            a0, b0 = (trainable["factors"][t][k][c] for k in ("A", "B"))
+            if not (torch.equal(a1[..., r:], a0[..., r:])
+                    and torch.equal(b1[:, r:], b0[:, r:])):
+                raise AssertionError(f"(b) client {c}: masked directions of "
+                                     f"{t} moved")
+            moved.append(bool((b1 - b0).any()))
+    finite = all(math.isfinite(st["loss"]) for st in steps)
+    aux_ok = all(st["aux"] > 0 for st in steps)
+    tokens = len(steps) * MOE_TUNE["batch"] * MOE_TUNE["seq"]
+    ok = (finite and aux_ok and all(moved) and not bad
+          and len(steps) == len(ranks) * n_steps)
+    log(f"  (b) HLoRA fine-tuning, {cfg.num_layers} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{cfg.active_param_count() / 1e9:.3f} B active a token), frozen; "
+        f"{len(ranks)} clients at ranks {ranks} on {cfg.lora.targets}, "
+        f"{n_steps} steps each of {MOE_TUNE['batch']} x {MOE_TUNE['seq']} "
+        f"tokens (one group of {g}, capacity {moe_lib.capacity(cfg, g)}), "
+        f"AdamW lr {lr}: {len(steps)} steps in {end - t0:.3f} s, "
+        f"{tokens / (end - t0):.1f} tok/s; step p50 "
+        f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+        f"{max(walls) * 1e3:.3f}); dropped slots {rl.drop_share():.4f}; "
+        f"peak memory {peak:.2f} GiB")
+    log(f"  (b) losses {[round(st['loss'], 4) for st in steps]}; aux "
+        f"{[round(st['aux'], 4) for st in steps]}; per-client mean "
+        f"{[round(float(x), 4) for x in losses]}; every loss finite "
+        f"{finite}, aux > 0 {aux_ok}; every client's factors moved "
+        f"{all(moved)}, masked directions bit-unchanged; launches a step "
+        f"{steps[0]['launches']} (expect {per} of each lora kernel: q, k, v "
+        f"and o in {L} layers; layer 0's four dx launches compute g alone) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(b) fine-tuning: launches differ at steps "
+                             f"{bad[:5]}, finite {finite}, aux {aux_ok}, "
+                             f"moved {moved}")
+    launches = {name: sum(st["launches"][name] for st in steps) for name in
+                ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+
+    # two more steps under the profiler, moe_ffn's forward in a range
+    forward = moe_lib.moe_ffn
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("moe"):
+            return forward(*args, **kw)
+
+    def two_steps():
+        make_local_train(cfg, adamw(lr), device="cuda")(
+            frozen, tree_map(lambda t: t[0], trainable),
+            tree_map(lambda t: t[0], masks),
+            {k: v[0, :MOE_PROFILED] for k, v in data.items()})
+
+    moe_lib.moe_ffn = ranged
+    try:
+        events = profile_window(torch, f"{MOE_PROFILED} fine-tuning steps",
+                                two_steps, group=moe_group,
+                                annotation="moe")
+    finally:
+        moe_lib.moe_ffn = forward
+    inside = {}
+    for key, ms, _ in events:
+        if key.startswith("moe: "):
+            grp = moe_group(key[5:])
+            inside[grp] = inside.get(grp, 0.0) + ms
+    groups = group_ms(events, moe_group)
+    log("  (b) device ms a step: " + ", ".join(
+        f"{k} {v / MOE_PROFILED:.3f}" for k, v in sorted(groups.items()))
+        + "; of it moe_ffn's forward: " + ", ".join(
+        f"{k} {v / MOE_PROFILED:.3f}" for k, v in sorted(inside.items())))
+    return launches
+
+
+def moe_decode(torch, np, cfg, params) -> dict:
+    """(c) decode at full depth through ``model.init_cache`` and
+    ``decode_step``. Returns the lora_matmul launches of the greedy
+    steps."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+
+    rows, plen = MOE_DECODE["rows"], MOE_DECODE["prompt"]
+    prompts = torch.from_numpy(make_bigram_lm(
+        rows, plen, LM_DATA_VOCAB, seed=4)["tokens"]).to("cuda")
+    tf_cfg = cfg.with_(moe_capacity_factor=MOE_DECODE["capacity_factor"])
+    t0 = time.perf_counter()
+    with torch.no_grad(), RouteLog(torch, moe_lib, keep=True) as fl:
+        logits, _ = model_lib.forward(params, {"tokens": prompts}, tf_cfg,
+                                      remat=False)
+    with RouteLog(torch, moe_lib, keep=True) as dl:
+        cache = model_lib.init_cache(tf_cfg, rows, plen, torch.float32,
+                                     device="cuda")
+        got = []
+        for t in range(plen):
+            lg, cache = model_lib.decode_step(params, cache,
+                                              prompts[:, t:t + 1], t, tf_cfg)
+            got.append(lg)
+    got = torch.stack(got, dim=1)
+    torch.cuda.synchronize()
+    # forward's group is the 8 x 32 tokens, row-major; decode step t's the
+    # 8 rows at position t: the same (layer, row, position) routings
+    L, k = cfg.num_layers, cfg.experts_per_token
+    want_r = []
+    got_r = []
+    for t in range(plen):
+        for layer in range(L):
+            fi, fk, fg = fl.calls[layer]
+            sel = torch.arange(rows) * plen + t
+            di, dk, dg = dl.calls[t * L + layer]
+            want_r.append((fi[:, sel], fk.view(1, -1, k)[:, sel].reshape(
+                1, -1), fg[:, sel]))
+            got_r.append((di, dk, dg))
+    # keep masks: no slot is dropped on either side at this capacity
+    drops = (fl.drop_share(), dl.drop_share())
+    if drops != (0.0, 0.0):
+        raise AssertionError(f"(c) slots dropped at capacity factor "
+                             f"{tf_cfg.moe_capacity_factor}: {drops}")
+    ties = routing_held("(c) decode routing against forward's, every "
+                        "layer and position", got_r, want_r)
+    # a near-tie taken the other way changes that row from that position
+    # on (attention carries it): those positions are named, not held
+    skip = torch.zeros(rows, plen, dtype=torch.bool)
+    for c, _, row in ties:
+        skip[row, c // L:] = True
+    diff = (got - logits).abs().amax(-1).cpu()            # (rows, plen)
+    scale = float(logits.abs().max())
+    err = float(diff[~skip].max())
+    ok = err <= MOE_DECODE_REL * scale and bool(got.isfinite().all())
+    log(f"  (c) {rows} prompts of {plen} tokens teacher-forced through "
+        f"decode at capacity factor {tf_cfg.moe_capacity_factor} (no slot "
+        f"dropped): max |decode - forward| {err:.3e} over "
+        f"{int((~skip).sum())} of {rows * plen} positions, the logits' "
+        f"max {scale:.3f}: err/scale {err / scale:.2e} (<= "
+        f"{MOE_DECODE_REL:.0e}); positions after a near-tie, not held: "
+        f"{int(skip.sum())}; {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(c) decode against forward: {err} > "
+                             f"{MOE_DECODE_REL} x {scale}")
+    del cache, logits, got
+
+    def greedy():
+        """The prompts through decode, then greedy steps at the config's
+        capacity factor: every step's logits and the greedy steps'
+        launches and times."""
+        cache = model_lib.init_cache(cfg, rows, plen + MOE_DECODE["greedy"],
+                                     torch.float32, device="cuda")
+        out, launches, walls = [], [], []
+        for t in range(plen):
+            lg, cache = model_lib.decode_step(params, cache,
+                                              prompts[:, t:t + 1], t, cfg)
+            out.append(lg)
+        tok = lg.argmax(-1, keepdim=True)
+        for t in range(plen, plen + MOE_DECODE["greedy"]):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ops.reset_launches()
+            lg, cache = model_lib.decode_step(params, cache, tok, t, cfg)
+            tok = lg.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            launches.append(dict(ops.LAUNCHES))
+            out.append(lg)
+        return torch.stack(out), launches, walls
+
+    with RouteLog(torch, moe_lib, keep=False) as gl:
+        first, launches, walls = greedy()
+    second, _, _ = greedy()
+    same = torch.equal(first, second)
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect["lora_matmul"] = 4 * cfg.num_layers
+    bad = [i for i, got in enumerate(launches) if got != expect]
+    finite = bool(first.isfinite().all())
+    ok = same and finite and not bad
+    cap = moe_lib.capacity(cfg, rows)
+    log(f"  (c) {MOE_DECODE['greedy']} greedy steps after the prompts at "
+        f"capacity factor {cfg.moe_capacity_factor} (capacity {cap} a "
+        f"step): logits finite {finite}; a second run bit for bit {same}; "
+        f"dropped slots {gl.drop_share():.4f}; decode step p50 "
+        f"{np.median(walls) * 1e3:.3f} ms "
+        f"({rows * len(walls) / sum(walls):.1f} tok/s); launches a step {launches[0]} (expect "
+        f"{expect['lora_matmul']} lora_matmul: q, k, v and o in "
+        f"{cfg.num_layers} layers; decode attention is plain) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(c) greedy decode: same bits {same}, finite "
+                             f"{finite}, launches differ at steps {bad[:5]}")
+    return {"lora_matmul": sum(n["lora_matmul"] for n in launches)}
+
+
+def moe_lm_loop(torch, np, example, cfg) -> dict:
+    """(d) the example's ``train`` at full width and 4 layers, every
+    parameter. Returns the lora kernels' launches."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.fed import simulation
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    cfg = cfg.with_(num_layers=MOE_LM["layers"])
+    data = make_bigram_lm(4096, MOE_LM["seq"], LM_DATA_VOCAB, seed=0)
+    grad_step, loss_fn = simulation.pretrain_loss_and_grads, model_lib.loss_fn
+    steps, aux = [], []
+
+    def hooked_loss(*args, **kw):
+        out = loss_fn(*args, **kw)
+        aux.append(out[1]["aux"].detach())
+        return out
+
+    def hooked(tree, batch, cfg_, **kw):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ops.reset_launches()
+        loss, grads = grad_step(tree, batch, cfg_, **kw)
+        steps.append(dict(start=start, loss=float(loss), aux=float(aux[-1]),
+                          launches=dict(ops.LAUNCHES)))
+        return loss, grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    simulation.pretrain_loss_and_grads, model_lib.loss_fn = hooked, \
+        hooked_loss
+    t0 = time.perf_counter()
+    try:
+        _, losses = example.train(
+            cfg, model_lib.init_params(cfg, seed=0, device="cuda"), data,
+            steps=MOE_LM["steps"], batch=MOE_LM["batch"], lr=MOE_LM["lr"],
+            remat=True, q_chunk=MOE_LM["q_chunk"], device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        simulation.pretrain_loss_and_grads, model_lib.loss_fn = grad_step, \
+            loss_fn
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+    bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
+    walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    walls.append(end - steps[-1]["start"])
+    finite = all(math.isfinite(v) for v in losses)
+    aux_ok = all(st["aux"] > 0 for st in steps)
+    last = float(np.mean(losses[-5:]))
+    ok = (finite and aux_ok and not bad and last < losses[0]
+          and len(steps) == MOE_LM["steps"])
+    tokens = len(steps) * MOE_LM["batch"] * MOE_LM["seq"]
+    log(f"  (d) the example's train, {cfg.num_layers} layers at full width "
+        f"({cfg.param_count() / 1e9:.3f} B parameters, every one trained), "
+        f"{len(steps)} steps of {MOE_LM['batch']} x {MOE_LM['seq']} tokens, "
+        f"remat, q_chunk {MOE_LM['q_chunk']}, AdamW lr {MOE_LM['lr']} "
+        f"({example.WARMUP_STEPS} warmup steps) in {end - t0:.3f} s: "
+        f"{tokens / (end - t0):.1f} tok/s; step p50 "
+        f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+        f"{max(walls) * 1e3:.3f}); peak memory {peak:.2f} GiB")
+    log(f"  (d) losses {[round(v, 4) for v in losses]}; aux "
+        f"{[round(st['aux'], 4) for st in steps[::5]]} (every 5th); every "
+        f"loss finite {finite}, aux > 0 every step {aux_ok}; first "
+        f"{losses[0]:.4f}, mean of the last 5 {last:.4f}; launches a step "
+        f"{steps[0]['launches']} (expect {expect['lora_matmul']} forward "
+        f"with remat's second pass, {expect['lora_matmul_dx']} dx, "
+        f"{expect['lora_matmul_grad_ab']} dA/dB) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(d) LM loop: launches differ at steps "
+                             f"{bad[:5]}, finite {finite}, aux {aux_ok}, "
+                             f"last 5 {last} against {losses[0]}")
+    return {name: sum(st["launches"][name] for st in steps) for name in
+            ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+
+
+def run_moe_phase(torch, np) -> dict:
+    """Phase 15 on OLMoE-1B-7B: (a) card against CPU at 2 layers, (b)
+    fine-tuning and (c) decode at full depth on one set of weights, (d)
+    LM training at 4 layers; each part's time and the peak memory.
+    Returns the lora kernels' launches of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(MOE_ARCH)
+    example = _lm_example()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moe_ffn_against_cpu(torch, cfg)
+    launches = moe_lm_step_against_cpu(torch, example, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} at full width and depth: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_experts} experts of "
+        f"{cfg.moe_d_ff}, top-{cfg.experts_per_token}, vocab "
+        f"{cfg.vocab_size}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"float32 from seed 0 on the card in {time.perf_counter() - t1:.1f} "
+        f"s")
+    for name, n in moe_finetune(torch, np, cfg, params).items():
+        launches[name] += n
+    t2 = time.perf_counter()
+    for name, n in moe_decode(torch, np, cfg, params).items():
+        launches[name] += n
+    t3 = time.perf_counter()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in moe_lm_loop(torch, np, example, cfg).items():
+        launches[name] += n
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase 15 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
+        f"{device_line()}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5582,6 +6186,16 @@ def main() -> int:
     for name, n in run_population_phase(torch, np).items():
         launches[name] += n
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[15] the mixture-of-experts family: full-width olmoe-1b-7b")
+    t0 = time.perf_counter()
+    # an eighth counted path for the lora kernels: the MoE decoder's LM
+    # step against the CPU, its fine-tuning cohort, its greedy decode and
+    # the LM example's steps
+    for name, n in run_moe_phase(torch, np).items():
+        launches[name] += n
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

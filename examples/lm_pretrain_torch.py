@@ -9,8 +9,11 @@ with a cosine schedule over every tensor, and the checkpoint store.
   PYTHONPATH=src python examples/lm_pretrain_torch.py --device cpu --steps 20
 
 It runs on the CUDA card unless ``--device cpu`` is given, and takes the
-reduced variant of ``--arch``, as ``examples/lm_pretrain.py`` does; at
-full width, call ``train`` with ``get_config(arch)``'s weights.
+reduced variant of ``--arch`` (a dense or mixture-of-experts decoder:
+``gemma-2b``, ``minitron-4b``, ``olmoe-1b-7b``,
+``llama4-maverick-400b-a17b``), as ``examples/lm_pretrain.py`` does; at
+full width, call ``train`` with ``get_config(arch)``'s weights. A MoE
+decoder's loss carries its load-balance term.
 ``main(argv)`` takes the arguments as a list and returns the losses.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Unified model API (port of ``repro/models/model.py``, dense decoder and
-encoder classifier branches).
+"""Unified model API (port of ``repro/models/model.py``: the dense and
+mixture-of-experts decoders and the encoder classifier).
 
     init_params(cfg, seed, dtype, device)              -> Transformer
-    forward(params, batch, cfg, remat=, q_chunk=)      -> logits
+    forward(params, batch, cfg, remat=, q_chunk=)      -> (logits, aux)
     loss_fn(params, batch, cfg, remat=, q_chunk=)      -> (loss, metrics)
     init_cache(cfg, batch, max_seq, dtype)             -> cache dict
     decode_step(params, cache, token, pos, cfg)        -> (logits, cache)
@@ -14,9 +14,11 @@ adapters and head in client training, every tensor in backbone
 pretraining (``fed/simulation.py::pretrain_backbone``) and LM training
 (``examples/lm_pretrain_torch.py``). ``remat`` and ``q_chunk`` default to
 the reference's (per-layer recomputation on, chunks of 1024 queries); the
-federated trainers pass ``remat=False`` as the reference's do. Unlike the
-reference, ``forward`` returns only the logits (the dense families have no
-auxiliary loss). Other ``arch_type``s raise ``NotImplementedError``.
+federated trainers pass ``remat=False`` as the reference's do. ``aux`` is
+the MoE load-balance loss summed over the layers (a float32 zero for the
+dense families); the LM loss adds ``MOE_AUX_WEIGHT`` times it, the
+classifier's does not, as in the reference. The other ``arch_type``s
+(ssm, hybrid, audio, vlm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ MOE_AUX_WEIGHT = 0.01
 
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "encoder") or cfg.num_experts:
+    if cfg.arch_type not in ("dense", "moe", "encoder"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported yet")
 
@@ -51,7 +53,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 def forward(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, remat: bool = True,
-            q_chunk: int = 1024) -> torch.Tensor:
+            q_chunk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
     _ported(cfg)
     return tf_lib.forward(params, batch["tokens"], cfg, remat=remat,
                           q_chunk=q_chunk,
@@ -64,8 +66,9 @@ def loss_fn(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],
     """Sequence classification: mean NLL of the labels under the float32
     log-softmax, and accuracy of the argmax. Next-token LM: the labels are
     already shifted by the data; the NLL is logsumexp of the float32 logits
-    less the label's logit, averaged over the labels >= 0 (none: 0)."""
-    logits = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk)
+    less the label's logit, averaged over the labels >= 0 (none: 0), plus
+    ``MOE_AUX_WEIGHT`` times the load-balance loss."""
+    logits, aux = forward(params, batch, cfg, remat=remat, q_chunk=q_chunk)
     labels = batch["labels"].long()
     if cfg.num_classes:
         logp = F.log_softmax(logits.float(), dim=-1)
@@ -81,7 +84,6 @@ def loss_fn(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],
     mask = (labels >= 0).float()
     nll = torch.sum((lse - label_logit) * mask) / torch.clamp(mask.sum(),
                                                               min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=lg.device)
     total = nll + MOE_AUX_WEIGHT * aux
     return total, {"loss": total, "nll": nll, "aux": aux}
 

@@ -1,6 +1,8 @@
-"""Dense transformer (port of the dense family of
-``repro/models/transformer.py``): the decoder, and the RoBERTa-style
-encoder classifier (``causal=False``, CLS pooling, a ``cls_head``).
+"""Decoder-only transformer (port of ``repro/models/transformer.py``): the
+dense and mixture-of-experts decoders (``layers["mlp"]`` holds the MoE
+FFN's router and experts when ``num_experts`` is set, ``models/moe.py``),
+and the RoBERTa-style encoder classifier (``causal=False``, CLS pooling, a
+``cls_head``).
 
 The model is an ``nn.Module`` whose parameters keep the reference's
 stacked layout: every per-layer weight is one ``(L, ...)`` tensor and
@@ -33,6 +35,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora as lora_lib
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (attention, cache_insert,
                                        init_kv_cache, layer_norm, mlp,
                                        out_proj, qkv_proj, rms_norm, rope,
@@ -61,7 +64,7 @@ class ParamGroup(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense decoder or encoder: ``embed`` (V, d), stacked ``layers``
+    """Decoder or encoder: ``embed`` (V, d), stacked ``layers``
     groups ``ln1``/``attn``/``ln2``/``mlp``, ``final_norm``, optional
     ``lm_head`` (d, V) (tied to ``embed`` otherwise), and for classifiers
     ``cls`` = {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
@@ -171,7 +174,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random weights drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (None = CUDA). Same distributions as the
     reference (std 1/sqrt(d_in) projections, 0.02 embedding, zero norm
-    weights); not the same numbers, since the generators differ."""
+    weights, ``init_moe_params``' for a MoE FFN); not the same numbers,
+    since the generators differ."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     L, d, hd, ff = (cfg.num_layers, cfg.d_model, cfg.resolved_head_dim,
@@ -193,9 +197,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
             "wk": dense(L, d, cfg.num_kv_heads * hd),
             "wv": dense(L, d, cfg.num_kv_heads * hd),
             "wo": dense(L, cfg.num_heads * hd, d)}
-    mlp_p = {"w1": dense(L, d, ff), "w2": dense(L, ff, d)}
-    if cfg.activation in ("silu", "geglu"):
-        mlp_p["w3"] = dense(L, d, ff)
+    if cfg.num_experts:
+        mlp_p = moe_lib.init_moe_params(gen, cfg, L, dtype, dev)
+    else:
+        mlp_p = {"w1": dense(L, d, ff), "w2": dense(L, ff, d)}
+        if cfg.activation in ("silu", "geglu"):
+            mlp_p["w3"] = dense(L, d, ff)
     if cfg.use_bias:
         for n, width in (("bq", cfg.num_heads * hd),
                          ("bk", cfg.num_kv_heads * hd),
@@ -240,10 +247,20 @@ def unbind_layers(tree: Dict, num_layers: int) -> List[Dict]:
             for i in range(num_layers)]
 
 
+def ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+        ad: LoraTree) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN: (y, aux), aux the MoE load-balance loss (a float32
+    zero for a dense MLP)."""
+    if cfg.num_experts:
+        return moe_lib.moe_ffn(x, p, cfg, ad)
+    return mlp(x, p, cfg, ad), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
 def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
                   *, causal: bool, positions: torch.Tensor,
-                  q_chunk: int = 1024) -> torch.Tensor:
-    """Pre-norm block over a whole sequence. x: (B, S, d)."""
+                  q_chunk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm block over a whole sequence. x: (B, S, d) -> (x, aux)."""
     q, k, v = qkv_proj(norm(x, lp["ln1"]), lp["attn"], cfg, ad)
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
@@ -251,14 +268,16 @@ def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
     o = attention(q, k, v, causal=causal, window=cfg.sliding_window,
                   q_chunk=q_chunk)
     x = x + out_proj(o, lp["attn"], cfg, ad)
-    return x + mlp(norm(x, lp["ln2"]), lp["mlp"], cfg, ad)
+    y, aux = ffn(norm(x, lp["ln2"]), lp["mlp"], cfg, ad)
+    return x + y, aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             remat: bool = True, q_chunk: int = 1024,
-            causal: bool = True) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, V), or (B, C) for a classifier
-    (CLS pooling: the final norm of position 0). Differentiable in
+            causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (logits (B, S, V), or (B, C) for a classifier
+    (CLS pooling: the final norm of position 0); aux, the layers' MoE
+    load-balance losses summed, float32). Differentiable in
     every tensor of ``params`` that requires grad; attention is the plain
     masked softmax in query chunks of ``q_chunk``, as in the reference's
     training path. With ``remat`` (the reference's ``jax.checkpoint`` per
@@ -277,19 +296,23 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
                              positions=positions, q_chunk=q_chunk)
 
     stacked = {g: params.layers[g].as_dict() for g in Transformer.GROUPS}
+    auxs = []
     for lp, ad in zip(unbind_layers(stacked, cfg.num_layers),
                       unbind_layers(params.lora, cfg.num_layers)):
         if remat and torch.is_grad_enabled():
             # non-reentrant: the reentrant form does not support
             # torch.autograd.grad, which the trainers take
-            x = torch.utils.checkpoint.checkpoint(layer, x, lp, ad,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(layer, x, lp, ad,
+                                                       use_reentrant=False)
         else:
-            x = layer(x, lp, ad)
+            x, aux = layer(x, lp, ad)
+        auxs.append(aux)
+    aux = torch.stack(auxs).sum()
     x = norm(x, params.final_norm.as_dict())
     if cfg.num_classes:
-        return x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"]
-    return x @ params.head()
+        return (x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"],
+                aux)
+    return x @ params.head(), aux
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +340,8 @@ def layer_decode(x: torch.Tensor, lp: Dict, ad: LoraTree,
                   window=cfg.sliding_window, q_offset=pos,
                   kv_positions=lc["pos"], kv_valid=lc["pos"] >= 0)
     x = x + out_proj(o, lp["attn"], cfg, ad)
-    return x + mlp(norm(x, lp["ln2"]), lp["mlp"], cfg, ad), lc
+    y, _ = ffn(norm(x, lp["ln2"]), lp["mlp"], cfg, ad)   # aux dropped
+    return x + y, lc
 
 
 @torch.no_grad()

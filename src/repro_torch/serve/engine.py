@@ -329,10 +329,12 @@ class ServeEngine:
                  recorder=None, metrics: Optional[MetricsRegistry] = None,
                  slo_ttft_s: Optional[Dict[str, float]] = None,
                  name: str = "serve", device=None):
-        if cfg.arch_type != "dense" or cfg.num_experts:
+        if cfg.arch_type != "dense":
             raise NotImplementedError(
                 f"serving supports the dense transformer family, got "
                 f"{cfg.arch_type!r}")
+        if cfg.num_experts:
+            raise NotImplementedError("MoE serving not wired yet")
         if kv_mode not in ("paged", "dense"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if drafter is not None and kv_mode != "paged":

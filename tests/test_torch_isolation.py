@@ -87,7 +87,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "launch/train.py", "obs/recorder.py", "obs/export.py",
                 "obs/timeseries.py", "obs/slo.py", "obs/collect.py",
                 "obs/report.py", "fed/compress.py", "fed/population.py",
-                "fed/topology.py"):
+                "fed/topology.py", "models/moe.py", "configs/olmoe_1b_7b.py",
+                "configs/llama4_maverick_400b_a17b.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

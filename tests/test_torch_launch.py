@@ -153,7 +153,7 @@ def test_centralized_driver_matches_reference(monkeypatch, capsys,
 
     def evaluate_logged(params, batch, cfg, device=None):
         with torch.no_grad():
-            logits = t_model.forward(params, batch, cfg)
+            logits, _ = t_model.forward(params, batch, cfg)
         margins.append((logits[:, 1] - logits[:, 0]).abs().numpy())
         return evaluate(params, batch, cfg, device=device)
 

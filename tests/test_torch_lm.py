@@ -46,7 +46,9 @@ from repro_torch.models import common as t_common
 from repro_torch.models import model as t_model
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("gemma-2b", "minitron-4b")   # tied head, MQA; lm_head, GQA
+DENSE_ARCHS = ("gemma-2b", "minitron-4b")   # tied head, MQA; lm_head, GQA
+# top-2 of 4 experts; top-1 of 4 with the shared expert
+ARCHS = DENSE_ARCHS + ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
 GRAD_REL = 1e-5
 LOSS_ATOL = 1e-5
 CHANGE_REL = 1e-3
@@ -93,12 +95,10 @@ def lm_example():
     return _example("lm_pretrain_torch", "lm_pretrain_torch.py")
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch(request):
+def _arch(name):
     """The reference's seed-0 weights with live adapters (small random B,
     a trained-looking mask), so that A's and the mask's gradients carry
     signal (at B = 0 they are exactly 0)."""
-    name = request.param
     jcfg, tcfg = j_get_reduced(name), get_reduced(name)
     tree = jax.tree.map(np.array, j_model.init_params(jax.random.PRNGKey(0),
                                                       jcfg))
@@ -109,6 +109,16 @@ def arch(request):
         ad["mask"] = (ad["mask"] * rng.uniform(0.8, 1.2, ad["mask"].shape)
                       ).astype(np.float32)
     return dict(jcfg=jcfg, tcfg=tcfg, tree=tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _arch(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_arch(request):
+    return _arch(request.param)
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +229,10 @@ def _hold_grads(got, want):
 @pytest.mark.parametrize("masked", ["none", "some"])
 def test_lm_loss_and_every_gradient_match_jax(arch, remat, q_chunk, masked):
     """``loss_fn``'s LM branch and the gradient of every leaf (the LoRA
-    masks and the head included) against ``jax.value_and_grad``, with
-    ``remat`` on and off and queries in chunks below S (5 takes chunks of
-    4 of the 12 positions), labels < 0 left out."""
+    masks and the head included; a MoE decoder's router and experts, the
+    aux term included) against ``jax.value_and_grad``, with ``remat`` on
+    and off and queries in chunks below S (5 takes chunks of 4 of the 12
+    positions), labels < 0 left out."""
     jcfg, tcfg, tree = arch["jcfg"], arch["tcfg"], arch["tree"]
     batch = _lm_batch(tcfg, masked)
     total_j, m_j, grads_j = _reference_loss_and_grads(jcfg, tree, batch,
@@ -237,7 +248,9 @@ def test_lm_loss_and_every_gradient_match_jax(arch, remat, q_chunk, masked):
     for k in m_j:
         np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=1e-5,
                                    err_msg=k)
-    assert float(m_t["aux"]) == 0.0 and float(total_t) == float(loss_t)
+    # the dense families' aux is 0; a MoE decoder's the load balance loss
+    assert (float(m_t["aux"]) > 0.0) == bool(tcfg.num_experts)
+    assert float(total_t) == float(loss_t)
     np.testing.assert_allclose(float(loss_t), float(total_j), rtol=1e-5)
     _hold_grads(_flat_np(grads_t), _flat_np(grads_j))
     if "lm_head" in params.tree():
@@ -247,8 +260,9 @@ def test_lm_loss_and_every_gradient_match_jax(arch, remat, q_chunk, masked):
         assert not _flat_np(grads_t)[("embed",)][unused].any()
 
 
-def test_all_masked_batch_gives_zero_loss_and_gradients(arch):
-    jcfg, tcfg, tree = arch["jcfg"], arch["tcfg"], arch["tree"]
+def test_all_masked_batch_gives_zero_loss_and_gradients(dense_arch):
+    jcfg, tcfg, tree = (dense_arch["jcfg"], dense_arch["tcfg"],
+                        dense_arch["tree"])
     batch = _lm_batch(tcfg, "all")
     total_j, m_j, grads_j = _reference_loss_and_grads(jcfg, tree, batch,
                                                       True, 1024)
@@ -304,13 +318,13 @@ def test_classifier_loss_takes_remat_and_q_chunk():
 # (4) the example's loop against the reference example's, and its main
 # ---------------------------------------------------------------------------
 
-def test_train_matches_the_reference_example_loop(monkeypatch, tmp_path,
-                                                  lm_example):
-    """5 steps of ``examples/lm_pretrain.py``'s own ``main`` (gemma-reduced,
-    batch 16 x 64, lr 3e-3, ``remat`` with q_chunk 64; its losses logged
-    through ``jax.debug.callback`` inside the jitted step, its weights read
-    from its checkpoint) against the port's ``train`` from the same seed-0
-    weights and data."""
+def _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
+                                          name):
+    """5 steps of ``examples/lm_pretrain.py``'s own ``main`` (``--arch``
+    ``name``'s reduced config, batch 16 x 64, lr 3e-3, ``remat`` with
+    q_chunk 64; its losses logged through ``jax.debug.callback`` inside the
+    jitted step, its weights read from its checkpoint) against the port's
+    ``train`` from the same seed-0 weights and data."""
     steps = 5
     logged, loss_fn = [], j_model.loss_fn
 
@@ -321,15 +335,15 @@ def test_train_matches_the_reference_example_loop(monkeypatch, tmp_path,
 
     monkeypatch.setattr(j_model, "loss_fn", logging_loss)
     ref_dir = tmp_path / "ref"
-    monkeypatch.setattr(sys, "argv", ["lm_pretrain.py", "--steps",
-                                      str(steps), "--ckpt-dir",
+    monkeypatch.setattr(sys, "argv", ["lm_pretrain.py", "--arch", name,
+                                      "--steps", str(steps), "--ckpt-dir",
                                       str(ref_dir)])
     _example("lm_pretrain_ref", "lm_pretrain.py").main()
     monkeypatch.setattr(j_model, "loss_fn", loss_fn)
     ref_tree, ref_meta = j_store.restore(str(ref_dir))
     assert len(logged) == steps and ref_meta["step"] == steps
 
-    jcfg, tcfg = j_get_reduced("gemma-2b"), get_reduced("gemma-2b")
+    jcfg, tcfg = j_get_reduced(name), get_reduced(name)
     init = jax.tree.map(np.array, j_model.init_params(jax.random.PRNGKey(0),
                                                       jcfg))
     params = interop.params_from_jax(init, tcfg, device="cpu")
@@ -347,6 +361,39 @@ def test_train_matches_the_reference_example_loop(monkeypatch, tmp_path,
         assert change > 0, path
         err = np.linalg.norm((got[path] - w).astype(np.float64))
         assert err <= CHANGE_REL * change, ("/".join(path), err, change)
+
+
+def test_train_matches_the_reference_example_loop(monkeypatch, tmp_path,
+                                                  lm_example):
+    """The reference example's default, gemma-reduced."""
+    _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
+                                          "gemma-2b")
+
+
+def test_train_matches_the_reference_example_loop_on_moe(
+        monkeypatch, tmp_path, lm_example):
+    """``--arch olmoe-1b-7b`` (olmoe-reduced: 2 layers, top-2 of 4
+    experts; 16 x 64 tokens, one group of 1024, capacity 1.25): the loss
+    with its aux term, the router and every expert trained."""
+    _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
+                                          "olmoe-1b-7b")
+
+
+def test_example_main_runs_a_moe_arch_on_the_cpu(lm_example):
+    """``main(["--arch", "olmoe-1b-7b", "--device", "cpu", ...])`` and the
+    Llama-4 alias take their reduced configs and give ``train``'s losses
+    from the port's own seed-0 weights."""
+    for name in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
+        losses = lm_example.main(["--arch", name, "--steps", "3", "--batch",
+                                  "4", "--seq", "16", "--device", "cpu"])
+        tcfg = get_reduced(name)
+        assert tcfg.arch_type == "moe"
+        _, again = lm_example.train(
+            tcfg, t_model.init_params(tcfg, seed=0, device="cpu"),
+            make_bigram_lm(4096, 16, tcfg.vocab_size, seed=0), steps=3,
+            batch=4, lr=3e-3, remat=True, q_chunk=64, device="cpu")
+        assert len(losses) == 3 and np.isfinite(losses).all()
+        assert again == losses
 
 
 def test_example_main_on_the_cpu_saves_a_checkpoint_the_reference_reads(

@@ -23,7 +23,12 @@ from repro_torch.models import common as t_common
 from repro_torch.models import model as t_model
 from repro_torch.models import transformer as t_tf
 
-ARCHS = ("gemma-2b", "minitron-4b")   # MQA + GeGLU, GQA (Hkv=2) + SiLU
+DENSE_ARCHS = ("gemma-2b", "minitron-4b")  # MQA + GeGLU, GQA (Hkv=2) + SiLU
+# top-2 of 4 experts; top-1 of 4 with the shared expert (GQA, Hkv=2)
+MOE_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
+ARCHS = DENSE_ARCHS + MOE_ARCHS
+MOE_FIELDS = ("num_experts", "experts_per_token", "moe_d_ff", "moe_shared",
+              "moe_group_size", "moe_capacity_factor", "arch_type")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,9 +49,7 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def arch(request):
-    name = request.param
+def _arch(name):
     jcfg, tcfg = j_get_reduced(name), get_reduced(name)
     key = jax.random.PRNGKey(0)
     jparams = j_model.init_params(key, jcfg)
@@ -54,6 +57,16 @@ def arch(request):
     jparams["lora"] = j_demo_adapter(jax.random.fold_in(key, 7), jcfg, 6)
     tparams = interop.params_from_jax(_np_tree(jparams), tcfg, device="cpu")
     return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return _arch(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_arch(request):
+    return _arch(request.param)
 
 
 def test_configs_match_reference():
@@ -65,12 +78,13 @@ def test_configs_match_reference():
             for field in ("num_layers", "d_model", "num_heads",
                           "num_kv_heads", "d_ff", "vocab_size",
                           "resolved_head_dim", "activation",
-                          "tie_embeddings", "rope_theta"):
+                          "tie_embeddings", "rope_theta") + MOE_FIELDS:
                 assert getattr(jc, field) == getattr(tc, field), field
             assert jc.lora.targets == tc.lora.targets
             assert (jc.lora.r_max, jc.lora.alpha) == (tc.lora.r_max,
                                                       tc.lora.alpha)
             assert jc.param_count() == tc.param_count()
+            assert jc.active_param_count() == tc.active_param_count()
 
 
 def test_rms_norm_and_layer_norm():
@@ -124,8 +138,8 @@ def test_masked_attention(causal, window, valid):
                                atol=1e-5)
 
 
-def test_geglu_and_silu_mlp(arch):
-    jcfg, tcfg, jparams, tparams = arch
+def test_geglu_and_silu_mlp(dense_arch):
+    jcfg, tcfg, jparams, tparams = dense_arch
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 3, jcfg.d_model), dtype=np.float32)
     jl = jax.tree.map(lambda a: a[0], jparams["layers"]["mlp"])
@@ -190,8 +204,19 @@ def test_init_params_shapes_and_scales(arch):
     assert abs(float(wq.std()) * tcfg.d_model ** 0.5 - 1.0) < 0.05
     assert abs(float(p.embed.std()) / 0.02 - 1.0) < 0.05
     assert not p.layers["ln1"].w.any()
+    if tcfg.num_experts:
+        # the reference's MoE draws: router, we1, we3 std 1/sqrt(d), we2
+        # std 1/sqrt(ff)
+        mp = p.layers["mlp"]
+        for name, fan_in in (("router", tcfg.d_model),
+                             ("we1", tcfg.d_model), ("we3", tcfg.d_model),
+                             ("we2", tcfg.moe_d_ff)):
+            std = float(getattr(mp, name).std()) * fan_in ** 0.5
+            assert abs(std - 1.0) < 0.05, name
     same = t_model.init_params(tcfg, seed=0, device="cpu")
-    assert torch.equal(same.layers["mlp"].w1, p.layers["mlp"].w1)
+    for name in jl["mlp"]:
+        assert torch.equal(getattr(same.layers["mlp"], name),
+                           getattr(p.layers["mlp"], name)), name
 
 
 def test_non_dense_families_raise():
@@ -200,3 +225,88 @@ def test_non_dense_families_raise():
         t_model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         t_model.init_cache(cfg, 1, 4, device="cpu")
+
+
+def test_interop_carries_moe_leaves_one_to_one():
+    """The reference's MoE ``mlp`` leaves (router (L, d, E), we1/we3 (L, E,
+    d, ff), we2 (L, E, ff, d), Llama-4's shared w1/w3 (L, d, d_ff) and w2)
+    come across under the same names, shapes and values, and go back
+    unchanged."""
+    for name in MOE_ARCHS:
+        jcfg, tcfg, jparams, tparams = _arch(name)
+        want = _np_tree(jparams["layers"]["mlp"])
+        L, d, e = tcfg.num_layers, tcfg.d_model, tcfg.num_experts
+        ff = tcfg.moe_d_ff
+        shapes = {"router": (L, d, e), "we1": (L, e, d, ff),
+                  "we3": (L, e, d, ff), "we2": (L, e, ff, d)}
+        if tcfg.moe_shared:
+            shapes.update(w1=(L, d, tcfg.d_ff), w3=(L, d, tcfg.d_ff),
+                          w2=(L, tcfg.d_ff, d))
+        got = tparams.layers["mlp"].as_dict()
+        assert sorted(got) == sorted(want) == sorted(shapes)
+        for k, w in want.items():
+            assert tuple(got[k].shape) == w.shape == shapes[k], k
+            assert np.array_equal(got[k].numpy(), w), k
+        back = interop.tree_to_numpy(tparams.tree())["layers"]["mlp"]
+        for k, w in want.items():
+            assert back[k].dtype == w.dtype and np.array_equal(back[k], w), k
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_forward_matches_reference(name):
+    """``forward``'s logits and summed aux against the reference's on a
+    MoE decoder (2 x 12 tokens: one group of 24, slots dropped at 1.25)."""
+    jcfg, tcfg, jparams, tparams = _arch(name)
+    toks = np.random.default_rng(6).integers(
+        3, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    lj, aj = j_model.forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg,
+                             remat=False)
+    with torch.no_grad():
+        lt, at = t_model.forward(tparams, {"tokens": _t(toks)}, tcfg,
+                                 remat=False)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                               atol=1e-4)
+    assert at.dtype == torch.float32 and float(at) > 0
+    np.testing.assert_allclose(float(at), float(aj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_decode_matches_forward(name):
+    """Teacher-forced decode equals the parallel forward at capacity 8.0,
+    where no slot is dropped (the reference's
+    ``tests/test_models.py::test_decode_matches_forward``: capacity drops
+    depend on the group, which is the whole sequence in ``forward`` and
+    the batch's rows in decode), within the reference test's 2e-3 of the
+    logits' largest magnitude."""
+    jcfg, tcfg, jparams, tparams = _arch(name)
+    tcfg = tcfg.with_(moe_capacity_factor=8.0)
+    toks = _t(np.random.default_rng(7).integers(
+        3, tcfg.vocab_size, (2, 10)).astype(np.int32))
+    with torch.no_grad():
+        logits, _ = t_model.forward(tparams, {"tokens": toks}, tcfg,
+                                    remat=False)
+    cache = t_model.init_cache(tcfg, 2, 10, torch.float32, device="cpu")
+    errs = []
+    for t in range(toks.shape[1]):
+        lg, cache = t_model.decode_step(tparams, cache, toks[:, t:t + 1], t,
+                                        tcfg)
+        errs.append(float((lg - logits[:, t]).abs().max()))
+    scale = float(logits.abs().max())
+    assert max(errs) < 2e-3 * max(scale, 1.0), errs
+
+
+def test_serve_engine_refuses_moe():
+    """The engine serves the dense family only, as the reference's does:
+    an ``arch_type="moe"`` config and a dense config with experts both
+    raise ``NotImplementedError``."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.registry import AdapterRegistry
+
+    tcfg = get_reduced("olmoe-1b-7b")
+    params = t_model.init_params(tcfg, device="cpu")
+    registry = AdapterRegistry(tcfg, capacity=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="dense transformer"):
+        ServeEngine(params, tcfg, registry, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE serving not wired"):
+        ServeEngine(params, tcfg.with_(arch_type="dense"), registry,
+                    device="cpu")

@@ -215,7 +215,7 @@ def test_encoder_logits_loss_and_accuracy_match(setup):
     tp = client_params(setup["tfrozen"], interop.tree_from_numpy(
         setup["trainable"], "cpu"), interop.tree_from_numpy(masks, "cpu"))
     tb = {k: _t(v) for k, v in batch.items()}
-    logits_t = t_model.forward(tp, tb, tcfg)
+    logits_t, _ = t_model.forward(tp, tb, tcfg)
     loss_t, m_t = t_model.loss_fn(tp, tb, tcfg)
     assert logits_t.shape == (12, tcfg.num_classes)
     np.testing.assert_allclose(logits_t.detach().numpy(),
