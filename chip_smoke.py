@@ -30,8 +30,10 @@ Phases, each of which raises on failure:
    training path's shapes (M 1024 and 2048 through Gemma-2B's 2048 -> 2048
    and 2048 -> 256 projections), at two ragged shapes (one taking the
    kernels with element loads), at M 8 through OLMoE-1B-7B's decode
-   projections (2048 -> 2048, timed with its bound) and at M = 1 on
-   Gemma-2B's widths, each
+   projections (2048 -> 2048, timed with its bound), at M = 1 on
+   Gemma-2B's widths, and at Mamba2-2.7B's ssm_in (2560 -> 10576) and
+   ssm_out (5120 -> 2560) at M 1024 and M 8 (forward, dx and dA/dB timed
+   with their bounds), each
    at the other split count and with an operand off 16-byte alignment,
    with each plan and the kernels' registers, the same bits on
    a second call, and cuBLAS's base products timed beside them; its
@@ -222,7 +224,27 @@ Phases, each of which raises on failure:
    example's ``train`` at 4 layers (1.88 B parameters, every one trained),
    30 steps of 16 x 64: finite losses, aux > 0, the last 5 below the
    first, 32/16/16 launches a step, step p50 and peak memory;
-16. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+16. the Mamba2 state-space family on full-width Mamba2-2.7B (64 layers,
+   d_inner 5120, 80 SSD heads of 64, state 128, 2.70 B parameters; run
+   after phase 15, with its weights freed): (a) at full width, the
+   chunked SSD scan on layer 0's own inputs (2 x 256 tokens: two chunks,
+   from a random initial state) and ``mamba_mixer`` on the card against
+   their float64 evaluation on the CPU (``MAMBA_SSD_REL``), then one LM ``train`` step at 2 layers on
+   2 x 256 tokens (phase 11 (a)'s limits, 8/4/4 launches); (b)
+   ``make_cohort_train`` at full depth, backbone frozen, 4 clients (ranks
+   2/4/6/8 on ssm_in and ssm_out) x 4 steps of 4 x 256 bigram tokens:
+   finite losses, factors moved, masked directions unchanged, 128 of each
+   lora kernel a step, step p50, tok/s, 2 profiled steps with the SSD
+   scan's device time apart; then one factored ``AggregationEngine`` call
+   on the 4 updates (no kernel launched), layers 0 and 63 of each shape
+   group held to float64 Eq. 2-3 (phase 7's spectra, Eckart-Young and
+   client-update limits); (c) 8 prompts of 256 tokens teacher-forced
+   through ``decode_step`` against ``forward`` (``MAMBA_DECODE_REL``),
+   then 16 greedy steps twice for the same bits, 128 ``lora_matmul`` a
+   step; (d) the LM example's ``train`` at 8 layers, every parameter, 30
+   steps of 16 x 64: finite losses, the last 5 below the first, 32/16/16
+   launches a step, peak memory;
+17. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -883,10 +905,12 @@ def verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1, ps):
 # shapes (OLMoE-1B-7B's q, k, v and o in training are Gemma-2B's q and o:
 # 2048 -> 2048 at M 1024), two ragged ones (the second with K and N not
 # multiples of 4: the kernels with element loads), OLMoE-1B-7B's decode
-# step (M 8) and the merged-weight oracle's M = 1 on Gemma-2B's widths.
+# step (M 8), the merged-weight oracle's M = 1 on Gemma-2B's widths, and
+# Mamba2-2.7B's ssm_in (2560 -> 10576) and ssm_out (5120 -> 2560) at its
+# fine-tuning step (4 x 256 tokens) and its decode step (M 8).
 # The first is the kernels line's; every shape whose M is in TIMED_M is
-# timed (dA/dB too, past the first), and the forward at every M in
-# DECODE_M.
+# timed (dA/dB too, past the first), and the forward, dx and dA/dB at
+# every M in DECODE_M.
 TIMED_M = (512, 1024, 2048)
 DECODE_M = (1, 8)
 LORA_SHAPES = [
@@ -908,6 +932,12 @@ LORA_SHAPES = [
      8, 2048, 2048, 8),
     ("M = 1, Gemma-2B q and o (oracle)", 1, 2048, 2048, 8),
     ("M = 1, Gemma-2B k and v (oracle)", 1, 2048, 256, 8),
+    ("fine-tuning: 4 x 256 tokens through Mamba2-2.7B's ssm_in", 1024,
+     2560, 10576, 8),
+    ("fine-tuning: 4 x 256 tokens through Mamba2-2.7B's ssm_out", 1024,
+     5120, 2560, 8),
+    ("decode: 8 rows through Mamba2-2.7B's ssm_in", 8, 2560, 10576, 8),
+    ("decode: 8 rows through Mamba2-2.7B's ssm_out", 8, 5120, 2560, 8),
 ]
 
 
@@ -1169,15 +1199,19 @@ def check_lora_matmul(torch, ops, lora_mod, gen) -> dict:
                 rows.setdefault("lora_matmul_dx", {
                     "max_abs_err": dx_err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, **bd})
-            elif m == 1:
+            elif m in DECODE_M:
                 plain_ms = time_ms(lambda: lora_mod.lora_matmul_dx_plain(
                     dy, w0, a, b, scale))
+                bd = bound(nbytes(dy, w0, a, b, dx, g),
+                           2 * m * n * k + 2 * m * r * (n + k),
+                           torch.float32)
                 log(f"    dx: ms {time_ms(call):.4f} plain_ms "
                     f"{plain_ms:.4f} cuBLAS dy @ W0^T alone "
-                    f"{time_ms(lambda: dy @ w0.T):.4f}")
+                    f"{time_ms(lambda: dy @ w0.T):.4f} bound_ms "
+                    f"{bd['bound_ms']:.5f} ({bd['bound_by']})")
             hold_grad_ab(torch, ops, lora_mod, lib, x, xa_ref, dy, g_ref,
                          scale, why, off16)
-            if m in TIMED_M[1:]:
+            if m in TIMED_M[1:] or m in DECODE_M:
                 time_grad_ab(x, xa_ref, dy, g_ref)
     log("  the same bits on a second call: every case above")
 
@@ -4024,10 +4058,11 @@ def _lm_example():
     return mod
 
 
-def _lm_expect(ops, layers: int, remat: bool) -> dict:
-    """Launches of one LM step: q, k, v and o in every layer, the forward
-    twice under remat (the backward runs each layer again)."""
-    per = 4 * layers
+def _lm_expect(ops, cfg, remat: bool) -> dict:
+    """Launches of one LM step of ``cfg``: its adapted projections in every
+    layer (q, k, v and o; Mamba2's ssm_in and ssm_out), the forward twice
+    under remat (the backward runs each layer again)."""
+    per = len(cfg.lora.targets) * cfg.num_layers
     expect = {name: 0 for name in ops.LAUNCHES}
     expect.update(lora_matmul=per * (2 if remat else 1),
                   lora_matmul_dx=per, lora_matmul_grad_ab=per)
@@ -4042,9 +4077,21 @@ def _norm_rel(torch, got, want) -> float:
     return num / den if den else (0.0 if num == 0 else math.inf)
 
 
-def lm_step_against_cpu(torch, example, cfg_full) -> None:
+def _live_cpu_weights(torch, cfg):
+    """Seed-0 weights on the CPU with live adapters (B small and random,
+    so that A's and the mask's gradients carry signal)."""
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for ad in params.lora.values():
+        ad["B"] = 0.05 * torch.randn(ad["B"].shape, generator=gen)
+    return params
+
+
+def lm_step_against_cpu(torch, example, cfg_full, step=LM_STEP) -> None:
     """(a) one ``train`` step of the example on the card against the CPU
-    (plain versions): Gemma-2B's full width at 2 layers, the same weights
+    (plain versions): the model's full width at ``step``'s depth (Gemma-2B
+    and ``LM_STEP``'s 2 layers in phase 11), the same weights
     (seed 0 on the CPU, copied to the card) with live adapters (B small
     and random, so that A's and the mask's gradients carry signal), the
     same rows: the loss, every leaf's gradient, every leaf's change after
@@ -4052,15 +4099,11 @@ def lm_step_against_cpu(torch, example, cfg_full) -> None:
     from repro_torch.data import make_bigram_lm
     from repro_torch.fed import simulation
     from repro_torch.kernels import ops
-    from repro_torch.models import model as model_lib
 
     t0 = time.perf_counter()
-    cfg = cfg_full.with_(num_layers=LM_STEP["layers"])
-    cpu = model_lib.init_params(cfg, seed=0, device="cpu")
-    gen = torch.Generator().manual_seed(1)
-    for ad in cpu.lora.values():
-        ad["B"] = 0.05 * torch.randn(ad["B"].shape, generator=gen)
-    data = make_bigram_lm(64, LM_STEP["seq"], LM_DATA_VOCAB, seed=0)
+    cfg = cfg_full.with_(num_layers=step["layers"])
+    cpu = _live_cpu_weights(torch, cfg)
+    data = make_bigram_lm(64, step["seq"], LM_DATA_VOCAB, seed=0)
     grad_step = simulation.pretrain_loss_and_grads
     res = {}
     for side, dev in (("cpu", "cpu"), ("card", "cuda")):
@@ -4079,8 +4122,8 @@ def lm_step_against_cpu(torch, example, cfg_full) -> None:
         t1 = time.perf_counter()
         try:
             trained, losses = example.train(
-                cfg, params, data, steps=1, batch=LM_STEP["batch"],
-                lr=LM_STEP["lr"], remat=True, q_chunk=LM_STEP["q_chunk"],
+                cfg, params, data, steps=1, batch=step["batch"],
+                lr=step["lr"], remat=True, q_chunk=step["q_chunk"],
                 device=dev)
             torch.cuda.synchronize()
         finally:
@@ -4091,12 +4134,17 @@ def lm_step_against_cpu(torch, example, cfg_full) -> None:
     dl = abs(res["card"]["loss"] - res["cpu"]["loss"])
     worst = dict(g=(0.0, ""), c=(0.0, ""), all=(0.0, ""))
     skipped, wrong = {}, 0
+    t2 = time.perf_counter()
+    # the comparison runs on the card, leaf by leaf, with the CPU side's
+    # tensors copied there: the same elementwise float32 and float64
+    # arithmetic, without a CPU pass over every element
     for path, g_cpu in res["cpu"]["grads"].items():
         name = "/".join(path)
-        g_card = res["card"]["grads"][path].cpu()
-        before = res["cpu"]["before"][path]
-        du_c = res["cpu"]["after"][path] - before
-        du_g = res["card"]["after"][path].cpu() - before
+        g_cpu = g_cpu.to("cuda")
+        g_card = res["card"]["grads"][path]
+        before = res["cpu"]["before"][path].to("cuda")
+        du_c = res["cpu"]["after"][path].to("cuda") - before
+        du_g = res["card"]["after"][path] - before
         change = float(torch.linalg.vector_norm(du_c.double()))
         if change == 0.0:
             raise AssertionError(f"LM step: {path} did not move")
@@ -4116,16 +4164,18 @@ def lm_step_against_cpu(torch, example, cfg_full) -> None:
             wrong += int((du_g[skip] * g_card[skip] > 0).sum())
         diff = (du_g - du_c).double()
         for key, err in (
-                ("g", rel_err(g_card, g_cpu)),
+                ("g", _norm_rel(torch, g_card, g_cpu)),
                 ("c", float(torch.linalg.vector_norm(diff[~skip])) / change),
                 ("all", float(torch.linalg.vector_norm(diff)) / change)):
             worst[key] = max(worst[key], (err, name))
-    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+        del g_cpu, g_card, before, du_c, du_g, dg, skip, diff
+    compare = time.perf_counter() - t2
+    expect = _lm_expect(ops, cfg, remat=True)
     got = res["card"]["launches"]
     ok = (dl <= TRAIN_LOSS_ATOL and worst["g"][0] <= TRAIN_REL
           and worst["c"][0] <= TRAIN_REL and not wrong and got == expect)
-    log(f"  (a) one train step, {LM_STEP['batch']} x {LM_STEP['seq']} tokens,"
-        f" remat, q_chunk {LM_STEP['q_chunk']}, {cfg.num_layers} layers at "
+    log(f"  (a) one train step, {step['batch']} x {step['seq']} tokens,"
+        f" remat, q_chunk {step['q_chunk']}, {cfg.num_layers} layers at "
         f"full width ({cfg.param_count() / 1e6:.1f} M): loss card "
         f"{res['card']['loss']:.6f} cpu {res['cpu']['loss']:.6f} (|diff| "
         f"{dl:.2e} <= {TRAIN_LOSS_ATOL:.0e}); gradient rel err per leaf max "
@@ -4143,8 +4193,8 @@ def lm_step_against_cpu(torch, example, cfg_full) -> None:
         f"differ in sign, by leaf {skipped or 'none'}, of which moved along "
         f"the card's own gradient {wrong} (must be 0); over the other "
         f"elements max {worst['c'][0]:.2e} ({worst['c'][1]}; <= "
-        f"{TRAIN_REL:.0e}); in {time.perf_counter() - t0:.1f} s "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{TRAIN_REL:.0e}); in {time.perf_counter() - t0:.1f} s (the "
+        f"comparison {compare:.1f} s) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"LM step: card and CPU disagree (loss {dl}, "
                              f"{worst}, {wrong} moved the wrong way) or "
@@ -4200,7 +4250,7 @@ def lm_loop(torch, np, example, cfg) -> tuple:
     end = time.perf_counter()
     wall = end - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+    expect = _lm_expect(ops, cfg, remat=True)
     bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
     walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
     walls.append(end - steps[-1]["start"])
@@ -4282,7 +4332,7 @@ def lm_long(torch, cfg, trained) -> dict:
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         got = dict(ops.LAUNCHES)
-        expect = _lm_expect(ops, cfg.num_layers, remat)
+        expect = _lm_expect(ops, cfg, remat)
         log(f"  (c) {label} (q_chunk {q_chunk}), {LM_LONG['batch']} x "
             f"{LM_LONG['seq']} tokens: loss {float(loss):.6f}; step "
             f"{secs * 1e3:.1f} ms; peak {peak / 2**30:.2f} GiB, "
@@ -5935,16 +5985,18 @@ def moe_decode(torch, np, cfg, params) -> dict:
     return {"lora_matmul": sum(n["lora_matmul"] for n in launches)}
 
 
-def moe_lm_loop(torch, np, example, cfg) -> dict:
-    """(d) the example's ``train`` at full width and 4 layers, every
-    parameter. Returns the lora kernels' launches."""
+def family_lm_loop(torch, np, example, cfg, spec) -> dict:
+    """(d) the example's ``train`` at full width and ``spec``'s depth
+    (``MOE_LM``, ``MAMBA_LM``), every parameter: the loss falls, the aux
+    term is > 0 every step for a MoE decoder and 0 otherwise. Returns the
+    lora kernels' launches."""
     from repro_torch.data import make_bigram_lm
     from repro_torch.fed import simulation
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
 
-    cfg = cfg.with_(num_layers=MOE_LM["layers"])
-    data = make_bigram_lm(4096, MOE_LM["seq"], LM_DATA_VOCAB, seed=0)
+    cfg = cfg.with_(num_layers=spec["layers"])
+    data = make_bigram_lm(4096, spec["seq"], LM_DATA_VOCAB, seed=0)
     grad_step, loss_fn = simulation.pretrain_loss_and_grads, model_lib.loss_fn
     steps, aux = [], []
 
@@ -5970,35 +6022,37 @@ def moe_lm_loop(torch, np, example, cfg) -> dict:
     try:
         _, losses = example.train(
             cfg, model_lib.init_params(cfg, seed=0, device="cuda"), data,
-            steps=MOE_LM["steps"], batch=MOE_LM["batch"], lr=MOE_LM["lr"],
-            remat=True, q_chunk=MOE_LM["q_chunk"], device="cuda")
+            steps=spec["steps"], batch=spec["batch"], lr=spec["lr"],
+            remat=True, q_chunk=spec["q_chunk"], device="cuda")
         torch.cuda.synchronize()
     finally:
         simulation.pretrain_loss_and_grads, model_lib.loss_fn = grad_step, \
             loss_fn
     end = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    expect = _lm_expect(ops, cfg.num_layers, remat=True)
+    expect = _lm_expect(ops, cfg, remat=True)
     bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
     walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
     walls.append(end - steps[-1]["start"])
     finite = all(math.isfinite(v) for v in losses)
-    aux_ok = all(st["aux"] > 0 for st in steps)
+    moe = bool(cfg.num_experts)
+    aux_ok = all((st["aux"] > 0) == moe for st in steps)
     last = float(np.mean(losses[-5:]))
     ok = (finite and aux_ok and not bad and last < losses[0]
-          and len(steps) == MOE_LM["steps"])
-    tokens = len(steps) * MOE_LM["batch"] * MOE_LM["seq"]
+          and len(steps) == spec["steps"])
+    tokens = len(steps) * spec["batch"] * spec["seq"]
     log(f"  (d) the example's train, {cfg.num_layers} layers at full width "
         f"({cfg.param_count() / 1e9:.3f} B parameters, every one trained), "
-        f"{len(steps)} steps of {MOE_LM['batch']} x {MOE_LM['seq']} tokens, "
-        f"remat, q_chunk {MOE_LM['q_chunk']}, AdamW lr {MOE_LM['lr']} "
+        f"{len(steps)} steps of {spec['batch']} x {spec['seq']} tokens, "
+        f"remat, q_chunk {spec['q_chunk']}, AdamW lr {spec['lr']} "
         f"({example.WARMUP_STEPS} warmup steps) in {end - t0:.3f} s: "
         f"{tokens / (end - t0):.1f} tok/s; step p50 "
         f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
         f"{max(walls) * 1e3:.3f}); peak memory {peak:.2f} GiB")
     log(f"  (d) losses {[round(v, 4) for v in losses]}; aux "
         f"{[round(st['aux'], 4) for st in steps[::5]]} (every 5th); every "
-        f"loss finite {finite}, aux > 0 every step {aux_ok}; first "
+        f"loss finite {finite}, aux {'> 0' if moe else '= 0'} every step "
+        f"{aux_ok}; first "
         f"{losses[0]:.4f}, mean of the last 5 {last:.4f}; launches a step "
         f"{steps[0]['launches']} (expect {expect['lora_matmul']} forward "
         f"with remat's second pass, {expect['lora_matmul_dx']} dx, "
@@ -6045,11 +6099,434 @@ def run_moe_phase(torch, np) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    for name, n in moe_lm_loop(torch, np, example, cfg).items():
+    for name, n in family_lm_loop(torch, np, example, cfg, MOE_LM).items():
         launches[name] += n
     t4 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  phase 15 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
+        f"{device_line()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the Mamba2 state-space family on full-width Mamba2-2.7B
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH = "mamba2-2.7b"
+# (a) the card against the CPU at full width and 2 layers, from one set of
+# weights (seed 0 on the CPU, live adapters, copied across):
+# ssd_chunked on layer 0's own inputs for 2 x 256 tokens (two SSD chunks of
+# 128, so the carried state is exercised) from a random initial state, and
+# mamba_mixer on layer 0; then one LM step (phase 11 (a)'s limits,
+# TRAIN_LOSS_ATOL and TRAIN_REL) on 2 x 256 tokens.
+# The scan and the mixer are held against a float64 evaluation of the same
+# code on the CPU (the scan computes in float64 for float64 inputs). In
+# float32 the chunk's cumulative decay reaches |cum| ~ 1.8e3 at these
+# inputs (dt up to 4.3, a down to -16, 128 positions), so its rounding,
+# ~eps |cum| ~ 1e-4, moves a surviving decay exp(cum_i - cum_j) by ~1e-4
+# of itself, and two float32 orders of the same sums (the card's cumsum
+# and einsums against the CPU's) differ by more than 1e-5 of max|y| (on
+# an H100: 6.0e-6 against a limit of 4.2e-6 on y). Each side is
+# therefore held to its distance from float64: the card's, per element
+# over the largest float64 magnitude, within MAMBA_SSD_REL (the CPU's own
+# float32 distance is printed beside it and not held)
+MAMBA_SSD = dict(batch=2, seq=256, init_std=0.1)
+MAMBA_SSD_REL = 1e-5
+MAMBA_STEP = dict(layers=2, batch=2, seq=256, q_chunk=64, lr=3e-3)
+# (b) HLoRA fine-tuning at full depth: 4 clients (ranks 2/4/6/8 on ssm_in
+# and ssm_out), 4 local steps each of 4 x 256 bigram tokens, backbone
+# frozen; then one factored merge of the 4 updates with weights eta in
+# MAMBA_ETA, layers 0 and 63 of each shape group held to float64 Eq. 2-3
+MAMBA_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=4, seq=256)
+MAMBA_ETA = (1.0, 2.0, 3.0, 4.0)
+MAMBA_PROFILED = 2
+# (c) decode at full depth: 8 prompts of 256 tokens teacher-forced through
+# decode_step against forward's logits (two SSD chunks), every position
+# within MAMBA_DECODE_REL of the logits' largest magnitude. Derivation,
+# fixed before the first run on the card: decode and forward sum the same
+# float32 products in other orders (the recurrence multiplies one step's
+# decay at a time where the chunk takes exp of a cumulative sum; the
+# projections run at M 8 against M 2048). On the CPU at full width,
+# 2 x 256 tokens, the error was 1.95e-6 of the scale at 2 layers and
+# 3.19e-6 at 4, about 7e-7 at the head and 6.2e-7 added a layer; growing
+# linearly (the worst case: the residual stream carries every layer's error
+# on) over 64 layers gives 4.0e-5, and five times that leaves room for the
+# card's reduction orders (cuBLAS and the lora kernel's splits): 2e-4, ten
+# times inside the reference test's 2e-3 (tests/test_models.py). Then 16
+# greedy steps from the teacher-forced cache, twice for the same bits
+MAMBA_DECODE = dict(rows=8, prompt=256, greedy=16)
+MAMBA_DECODE_REL = 2e-4
+# (d) the LM example's train at full width, depth cut to 8 layers (AdamW
+# over all 2.7 B parameters would hold ~43 GB of state before activations),
+# every parameter: 30 steps of 16 x 64 tokens (one SSD chunk of 64)
+MAMBA_LM = dict(layers=8, steps=30, batch=16, seq=64, lr=3e-3, q_chunk=64)
+
+
+def mamba_ssd_against_cpu(torch, cfg_full) -> None:
+    """(a) ``ssd_chunked`` on layer 0's own inputs and ``mamba_mixer`` of
+    layer 0, full width, the card against the CPU."""
+    import torch.nn.functional as F
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.models import mamba2 as ssm_lib
+    from repro_torch.models.transformer import layer_slice, norm
+
+    cfg = cfg_full.with_(num_layers=1)
+    params = _live_cpu_weights(torch, cfg)
+    b, s = MAMBA_SSD["batch"], MAMBA_SSD["seq"]
+    tokens = torch.from_numpy(make_bigram_lm(b, s, LM_DATA_VOCAB,
+                                             seed=5)["tokens"]).long()
+    lp, ad = params.layer(0), layer_slice(params.lora, 0)
+    p = lp["ssm"]
+    with torch.no_grad():
+        x = norm(params.embed[tokens], lp["ln1"])
+        zxbcdt = x @ p["in_proj"]
+        _, xbc, dt = ssm_lib._split_proj(zxbcdt, cfg)
+        xbc = ssm_lib.causal_conv(xbc, p["conv_w"], p["conv_b"])
+    di, n = cfg.d_inner, cfg.ssm_state
+    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
+    gen = torch.Generator().manual_seed(2)
+    inputs = dict(
+        x=xbc[..., :di].reshape(b, s, h, pdim), bmat=xbc[..., di:di + n],
+        cmat=xbc[..., di + n:],
+        dt=F.softplus(dt.float() + p["dt_bias"]), a=-torch.exp(p["A_log"]),
+        init_state=MAMBA_SSD["init_std"] * torch.randn(
+            b, h, pdim, n, generator=gen))
+    res = {}
+    for side, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("float64", "cpu", torch.float64),
+                             ("card", "cuda", torch.float32)):
+        def put(t):
+            return t.to(dev, dtype if t.is_floating_point() else None)
+
+        on = {k: put(v) for k, v in inputs.items()}
+        pd = {k: put(v) for k, v in p.items()}
+        adp = {t: {k: put(v) for k, v in a.items()} for t, a in ad.items()}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            y, state = ssm_lib.ssd_chunked(
+                on["x"], on["dt"], on["a"], on["bmat"], on["cmat"],
+                init_state=on["init_state"])
+            mix = ssm_lib.mamba_mixer(put(x), pd, cfg, adp)
+            torch.cuda.synchronize()
+            res[side] = dict(y=y.cpu(), state=state.cpu(), mixer=mix.cpu(),
+                             secs=time.perf_counter() - t0)
+    cum = torch.cumsum(inputs["dt"].reshape(b, -1, ssm_lib.SSD_CHUNK, h)
+                       * inputs["a"], dim=2)
+    log(f"  (a) ssd_chunked on layer 0's own inputs, {b} x {s} tokens "
+        f"({s // ssm_lib.SSD_CHUNK} chunks of {ssm_lib.SSD_CHUNK}), "
+        f"{h} heads of {pdim}, state {n}, from a random initial state "
+        f"(dt {float(inputs['dt'].min()):.3f}..{float(inputs['dt'].max()):.3f}"
+        f", max |cum| {float(cum.abs().max()):.1f}); then mamba_mixer with "
+        f"live adapters: card {res['card']['secs'] * 1e3:.1f} ms, cpu "
+        f"{res['cpu']['secs'] * 1e3:.0f} ms, cpu float64 "
+        f"{res['float64']['secs'] * 1e3:.0f} ms")
+    for name in ("y", "state", "mixer"):
+        truth = res["float64"][name]
+        scale = float(truth.abs().max())
+        err = {side: float((res[side][name].double() - truth).abs().max())
+               / scale for side in ("card", "cpu")}
+        between = float((res["card"][name] - res["cpu"][name]).abs().max())
+        ok = (math.isfinite(err["card"]) and err["card"] <= MAMBA_SSD_REL
+              and bool(res["card"][name].isfinite().all()))
+        log(f"  (a) {'ssd_chunked ' if name != 'mixer' else 'mamba_'}{name}"
+            f": max |card - float64| {err['card']:.3e} of max|float64| "
+            f"({scale:.4f}) (limit {MAMBA_SSD_REL:.0e}); cpu float32 "
+            f"{err['cpu']:.3e} and card against cpu {between / scale:.3e} "
+            f"(not held) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(a) {name}: the card {err['card']} from "
+                                 f"float64, over {MAMBA_SSD_REL}")
+
+
+def mamba_finetune(torch, np, cfg, params) -> tuple:
+    """(b) ``make_cohort_train`` at full depth: 4 clients at ranks 2/4/6/8
+    on ssm_in and ssm_out, 4 steps each, backbone frozen. Returns (the lora
+    kernels' launches, the trained cohort {target: {"A", "B", "mask"}})."""
+    from repro_torch.core.lora import make_rank_mask
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.fed import (SimConfig, client as client_mod,
+                                 join_adapters, make_cohort_train,
+                                 make_local_train, split_adapters,
+                                 split_head)
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba2 as ssm_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw, tree_map
+
+    ranks, n_steps = MAMBA_TUNE["ranks"], MAMBA_TUNE["steps"]
+    bsz, seq = MAMBA_TUNE["batch"], MAMBA_TUNE["seq"]
+    L, r_max = cfg.num_layers, cfg.lora.r_max
+    lr = SimConfig().lr
+    frozen, head = split_head(params)
+    factors, _ = split_adapters(params.lora)
+    trainable = tree_map(lambda t: torch.stack([t] * len(ranks)),
+                         {"factors": factors, "head": head})
+    masks = {t: torch.stack([make_rank_mask(r, r_max, device="cuda").expand(
+        L, r_max) for r in ranks]) for t in cfg.lora.targets}
+    lm = make_bigram_lm(len(ranks) * n_steps * bsz, seq, LM_DATA_VOCAB,
+                        seed=3)
+    data = {k: torch.from_numpy(v).reshape(len(ranks), n_steps, bsz,
+                                           seq).to("cuda")
+            for k, v in lm.items()}
+    # one unmeasured step (cuBLAS, the kernels' first calls)
+    make_local_train(cfg, adamw(lr), device="cuda")(
+        frozen, tree_map(lambda t: t[0], trainable),
+        tree_map(lambda t: t[0], masks), {k: v[0, :1] for k, v in
+                                          data.items()})
+    steps = []
+    undo = _moe_steps_hooked(torch, ops, client_mod, model_lib, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        trained, losses = make_cohort_train(cfg, adamw(lr), device="cuda")(
+            frozen, trainable, masks, data)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = len(cfg.lora.targets) * L
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect.update(lora_matmul=per, lora_matmul_dx=per,
+                  lora_matmul_grad_ab=per)
+    bad = [i for i, st in enumerate(steps) if st["launches"] != expect]
+    walls = [b["start"] - a["start"] for a, b in zip(steps, steps[1:])]
+    walls.append(end - steps[-1]["start"])
+    moved = []
+    for c, r in enumerate(ranks):
+        for t in cfg.lora.targets:
+            a1, b1 = (trained["factors"][t][k][c] for k in ("A", "B"))
+            a0, b0 = (trainable["factors"][t][k][c] for k in ("A", "B"))
+            if not (torch.equal(a1[..., r:], a0[..., r:])
+                    and torch.equal(b1[:, r:], b0[:, r:])):
+                raise AssertionError(f"(b) client {c}: masked directions of "
+                                     f"{t} moved")
+            moved.append(bool((b1 - b0).any()))
+    finite = all(math.isfinite(st["loss"]) for st in steps)
+    aux_ok = all(st["aux"] == 0 for st in steps)
+    tokens = len(steps) * bsz * seq
+    ok = (finite and aux_ok and all(moved) and not bad
+          and len(steps) == len(ranks) * n_steps)
+    log(f"  (b) HLoRA fine-tuning, {L} layers ({cfg.param_count() / 1e9:.3f}"
+        f" B parameters), frozen; {len(ranks)} clients at ranks {ranks} on "
+        f"{cfg.lora.targets}, {n_steps} steps each of {bsz} x {seq} tokens "
+        f"({seq // min(ssm_lib.SSD_CHUNK, seq)} SSD chunks a row), AdamW lr "
+        f"{lr}: {len(steps)} steps in {end - t0:.3f} s, "
+        f"{tokens / (end - t0):.1f} tok/s; step p50 "
+        f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
+        f"{max(walls) * 1e3:.3f}); peak memory {peak:.2f} GiB")
+    log(f"  (b) losses {[round(st['loss'], 4) for st in steps]}; per-client "
+        f"mean {[round(float(x), 4) for x in losses]}; every loss finite "
+        f"{finite}, aux 0 {aux_ok}; every client's factors moved "
+        f"{all(moved)}, masked directions bit-unchanged; launches a step "
+        f"{steps[0]['launches']} (expect {per} of each lora kernel: ssm_in "
+        f"and ssm_out in {L} layers; layer 0's ssm_in dx launch computes g "
+        f"alone) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(b) fine-tuning: launches differ at steps "
+                             f"{bad[:5]}, finite {finite}, aux {aux_ok}, "
+                             f"moved {moved}")
+    launches = {name: sum(st["launches"][name] for st in steps) for name in
+                ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+
+    # two more steps under the profiler, the SSD scan in a range
+    scan = ssm_lib.ssd_chunked
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("ssd"):
+            return scan(*args, **kw)
+
+    def two_steps():
+        make_local_train(cfg, adamw(lr), device="cuda")(
+            frozen, tree_map(lambda t: t[0], trainable),
+            tree_map(lambda t: t[0], masks),
+            {k: v[0, :MAMBA_PROFILED] for k, v in data.items()})
+
+    ssm_lib.ssd_chunked = ranged
+    try:
+        events = profile_window(torch, f"{MAMBA_PROFILED} fine-tuning steps",
+                                two_steps, group=train_group,
+                                annotation="ssd")
+    finally:
+        ssm_lib.ssd_chunked = scan
+    groups = group_ms(events, train_group, "ssd")
+    log("  (b) device ms a step: " + ", ".join(
+        f"{k} {v / MAMBA_PROFILED:.3f}" for k, v in sorted(groups.items()))
+        + " (ssd: the chunked scan's forward, launched inside its range; "
+        "its backward falls under other)")
+    return launches, join_adapters(trained["factors"], masks)
+
+
+def mamba_aggregate(torch, np, cfg, cohort) -> None:
+    """(b) one ``AggregationEngine`` call, the default factored method, on
+    the 4 updates: two shape groups of 64 items, no kernel launched; layers
+    0 and 63 of each held to float64 Eq. 2-3 of the collected factors
+    (phase 7's (b) spectra, (c) Eckart-Young and (d) client updates)."""
+    from repro_torch.core.agg_engine import AggregationEngine
+    from repro_torch.kernels import ops
+
+    alpha, r_max = cfg.lora.alpha, cfg.lora.r_max
+    eta = torch.tensor(MAMBA_ETA, dtype=torch.float32, device="cuda")
+    ranks = [int(x) for x in cohort["ssm_in"]["mask"][:, 0].sum(-1)]
+    engine = AggregationEngine()
+    log(f"  (b) cohort A shapes "
+        f"{ {t: tuple(ad['A'].shape) for t, ad in cohort.items()} }, ranks "
+        f"{ranks}, eta {MAMBA_ETA}, alpha {alpha}: two shape groups of "
+        f"{cfg.num_layers} items, Kc R = {len(ranks) * r_max}")
+    (out, spectra), _ = counted_call(
+        torch, ops, "(b) factored aggregation", 0,
+        lambda: engine(cohort, eta, alpha))
+    time_calls(torch, np, "(b) factored aggregation",
+               lambda: engine(cohort, eta, alpha), 1)
+    held = [0, cfg.num_layers - 1]
+    for t in sorted(cohort):
+        sub = {t: {k: v[:, held] for k, v in cohort[t].items()}}
+        a, b, coef = dense_inputs(torch, sub, eta, alpha)
+        n_items, kc, d_in, rr = a.shape
+        p64 = (a.double() * coef.double()[:, :, None, None]).permute(
+            0, 2, 1, 3).reshape(n_items, d_in, kc * rr)
+        dw, sig, trunc = float64_truncations(
+            torch, p64, b.double().reshape(n_items, kc * rr, -1), ranks)
+        label = f"(b) {t} {tuple(dw.shape[1:])}, layers {held}"
+        hold_spectra(f"{label}: factored against float64",
+                     spectra[t][held].double(), sig[:, :r_max], sig)
+        upd = item_updates(torch, {t: {k: v[:, held] for k, v in
+                                       out[t].items()}}, alpha)
+        hold_eckart_young(torch, f"{label}: factored", dw, sig, upd, ranks)
+        hold_updates(torch, f"{label}: factored against float64", upd,
+                     trunc, sig, ranks)
+        del dw, trunc, upd, p64
+
+
+def mamba_decode(torch, np, cfg, params) -> dict:
+    """(c) decode at full depth through ``model.init_cache`` and
+    ``decode_step``: teacher-forced against ``forward``, then greedy steps
+    twice. Returns the lora_matmul launches of the greedy steps."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    rows, plen = MAMBA_DECODE["rows"], MAMBA_DECODE["prompt"]
+    prompts = torch.from_numpy(make_bigram_lm(
+        rows, plen, LM_DATA_VOCAB, seed=4)["tokens"]).to("cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = model_lib.forward(params, {"tokens": prompts}, cfg,
+                                      remat=False)
+    cache = model_lib.init_cache(cfg, rows, plen, torch.float32,
+                                 device="cuda")
+    err = torch.zeros((), device="cuda")
+    for t in range(plen):
+        lg, cache = model_lib.decode_step(params, cache, prompts[:, t:t + 1],
+                                          t, cfg)
+        err = torch.maximum(err, (lg - logits[:, t]).abs().max())
+    finite = bool(lg.isfinite().all()) and bool(logits.isfinite().all())
+    scale = float(logits.abs().max())
+    err = float(err)
+    torch.cuda.synchronize()
+    ok = err <= MAMBA_DECODE_REL * scale and finite
+    state_mb = cache["state"][0, 0].numel() * 4 * cfg.num_layers / 1e6
+    log(f"  (c) {rows} prompts of {plen} tokens teacher-forced through "
+        f"decode (float32 cache: SSD state {state_mb:.1f} MB a row): max "
+        f"|decode - forward| {err:.3e} over every position, the logits' max "
+        f"{scale:.3f}: err/scale {err / scale:.2e} (<= "
+        f"{MAMBA_DECODE_REL:.0e}); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(c) decode against forward: {err} > "
+                             f"{MAMBA_DECODE_REL} x {scale}, finite {finite}")
+    del logits
+
+    def greedy():
+        """Greedy steps from a copy of the teacher-forced cache: every
+        step's logits, launches and times."""
+        run = {k: v.clone() for k, v in cache.items()}
+        tok = lg.argmax(-1, keepdim=True)
+        out, launches, walls = [], [], []
+        for t in range(plen, plen + MAMBA_DECODE["greedy"]):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            ops.reset_launches()
+            step, run = model_lib.decode_step(params, run, tok, t, cfg)
+            tok = step.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            launches.append(dict(ops.LAUNCHES))
+            out.append(step)
+        return torch.stack(out), launches, walls
+
+    first, launches, walls = greedy()
+    second, _, _ = greedy()
+    same = torch.equal(first, second)
+    expect = {name: 0 for name in ops.LAUNCHES}
+    expect["lora_matmul"] = len(cfg.lora.targets) * cfg.num_layers
+    bad = [i for i, got in enumerate(launches) if got != expect]
+    finite = bool(first.isfinite().all())
+    ok = same and finite and not bad
+    log(f"  (c) {MAMBA_DECODE['greedy']} greedy steps after the prompts: "
+        f"logits finite {finite}; a second run bit for bit {same}; decode "
+        f"step p50 {np.median(walls) * 1e3:.3f} ms (min "
+        f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; "
+        f"{rows * len(walls) / sum(walls):.1f} tok/s); launches a step "
+        f"{launches[0]} (expect {expect['lora_matmul']} lora_matmul: ssm_in "
+        f"and ssm_out in {cfg.num_layers} layers) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(c) greedy decode: same bits {same}, finite "
+                             f"{finite}, launches differ at steps {bad[:5]}")
+    return {"lora_matmul": sum(n["lora_matmul"] for n in launches)}
+
+
+def run_mamba_phase(torch, np) -> dict:
+    """Phase 16 on Mamba2-2.7B: (a) card against CPU at 2 layers, (b)
+    fine-tuning and its aggregation and (c) decode at full depth on one set
+    of weights, (d) LM training at 8 layers; each part's time and the peak
+    memory. Returns the lora kernels' launches of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(MAMBA_ARCH)
+    example = _lm_example()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mamba_ssd_against_cpu(torch, cfg)
+    lm_step_against_cpu(torch, example, cfg, MAMBA_STEP)
+    # the card's step was the last to run: its launches
+    launches = {name: ops.LAUNCHES[name] for name in (
+        "lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} at full width and depth: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} "
+        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"float32 from seed 0 on the card in {time.perf_counter() - t1:.1f} "
+        f"s")
+    tuned, cohort = mamba_finetune(torch, np, cfg, params)
+    for name, n in tuned.items():
+        launches[name] += n
+    mamba_aggregate(torch, np, cfg, cohort)
+    del cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for name, n in mamba_decode(torch, np, cfg, params).items():
+        launches[name] += n
+    t3 = time.perf_counter()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in family_lm_loop(torch, np, example, cfg, MAMBA_LM).items():
+        launches[name] += n
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase 16 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
         f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
         f"{device_line()}")
     return launches
@@ -6196,6 +6673,16 @@ def main() -> int:
     for name, n in run_moe_phase(torch, np).items():
         launches[name] += n
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[16] the Mamba2 state-space family: full-width mamba2-2.7b")
+    t0 = time.perf_counter()
+    # a ninth counted path for the lora kernels: the Mamba2 LM step against
+    # the CPU, its fine-tuning cohort, its greedy decode and the LM
+    # example's steps
+    for name, n in run_mamba_phase(torch, np).items():
+        launches[name] += n
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

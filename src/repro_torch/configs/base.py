@@ -1,6 +1,6 @@
-"""Config system for the PyTorch port: the dense and mixture-of-experts
-fields of the reference's ``repro.configs.base`` (a copy, so the port
-imports nothing of ``repro``).
+"""Config system for the PyTorch port: the dense, mixture-of-experts and
+state-space fields of the reference's ``repro.configs.base`` (a copy, so
+the port imports nothing of ``repro``).
 
 Each architecture file defines ``CONFIG`` (the published shape, cited)
 and ``reduced()`` (a tiny same-family variant for CPU tests).
@@ -25,7 +25,7 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # "dense", "moe" (decoders) or "encoder" (classifier)
+    arch_type: str  # "dense", "moe", "ssm" (decoders) or "encoder"
     num_layers: int
     d_model: int
     num_heads: int
@@ -40,6 +40,11 @@ class ModelConfig:
     moe_shared: bool = False   # llama4-style always-on shared expert
     moe_group_size: int = 1024  # tokens per dispatch group
     moe_capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
     sliding_window: Optional[int] = None   # None = full attention
     rope_theta: float = 10000.0
     activation: str = "silu"   # silu | geglu | gelu
@@ -53,19 +58,38 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
+    @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
         """Analytic parameter count of the base model (no LoRA); MoE layers
-        count every expert and the router."""
+        count every expert and the router, an SSM layer its ``in_proj``
+        (x -> [z, x, B, C, dt]) and ``out_proj`` and no attention."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab_size * d
         if self.num_classes:
             head = d * self.num_classes
         else:
             head = 0 if self.tie_embeddings else self.vocab_size * d
-        attn = 2 * d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+        if self.arch_type == "ssm":
+            di = self.d_inner
+            proj_out = 2 * di + 2 * self.ssm_state + self.ssm_heads
+            attn = d * proj_out + di * d
+        else:
+            attn = (2 * d * self.num_heads * hd
+                    + 2 * d * self.num_kv_heads * hd)
         if self.num_experts:
             width = self.moe_d_ff or self.d_ff
             ffn = self.num_experts * 3 * d * width + d * self.num_experts
@@ -90,6 +114,7 @@ _ALIASES = {
     "roberta-large": "roberta_large",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.mamba2 import FLOAT32_LEAVES
 from repro_torch.models.transformer import Transformer
 
 
@@ -60,9 +61,16 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None,
                     dtype=None) -> Transformer:
     """A reference param tree (numpy leaves) -> ``Transformer``. The tree's
     ``"lora"`` entry becomes ``Transformer.lora``, its ``cls_head`` and
-    ``cls_bias`` (classifiers) ``Transformer.cls``."""
+    ``cls_bias`` (classifiers) ``Transformer.cls``. Under ``dtype``, a
+    Mamba2 tree's ``A_log``, ``D`` and ``dt_bias`` stay float32, as the
+    reference creates them whatever the model's dtype."""
     dev = resolve_device(device)
     converted = tree_from_numpy({k: v for k, v in tree.items()
                                  if k != "lora"}, dev, dtype)
+    ssm = tree.get("layers", {}).get("ssm", {})
+    for name in FLOAT32_LEAVES:
+        if name in ssm:
+            converted["layers"]["ssm"][name] = _tensor(ssm[name], dev,
+                                                       torch.float32)
     return Transformer(cfg, converted,
                        lora_from_jax(tree.get("lora", {}), dev, dtype))

@@ -2,7 +2,10 @@
 dense and mixture-of-experts decoders (``layers["mlp"]`` holds the MoE
 FFN's router and experts when ``num_experts`` is set, ``models/moe.py``),
 and the RoBERTa-style encoder classifier (``causal=False``, CLS pooling, a
-``cls_head``).
+``cls_head``). The module class also holds the attention-free Mamba2 stack
+(``layers`` = {"ln1", "ssm"}, ``models/mamba2.py``), whose forward and
+decode live in ``models/model.py``: ``Transformer`` takes its layer groups
+from the tree it is given.
 
 The model is an ``nn.Module`` whose parameters keep the reference's
 stacked layout: every per-layer weight is one ``(L, ...)`` tensor and
@@ -64,19 +67,24 @@ class ParamGroup(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Decoder or encoder: ``embed`` (V, d), stacked ``layers``
-    groups ``ln1``/``attn``/``ln2``/``mlp``, ``final_norm``, optional
-    ``lm_head`` (d, V) (tied to ``embed`` otherwise), and for classifiers
-    ``cls`` = {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
+    """Decoder or encoder: ``embed`` (V, d), stacked ``layers`` groups
+    (``ln1``/``attn``/``ln2``/``mlp`` for the transformer families,
+    ``ln1``/``ssm`` for Mamba2), ``final_norm``, optional ``lm_head``
+    (d, V) (tied to ``embed`` otherwise), and for classifiers ``cls`` =
+    {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
 
+    # the transformer families' groups, in the order the module keeps them
     GROUPS = ("ln1", "attn", "ln2", "mlp")
 
     def __init__(self, cfg: ModelConfig, tree: Dict, lora: LoraTree):
         super().__init__()
         self.cfg = cfg
         self.embed = _frozen(tree["embed"])
+        given = tree["layers"]
+        self.groups = tuple([g for g in self.GROUPS if g in given]
+                            + [g for g in given if g not in self.GROUPS])
         self.layers = nn.ModuleDict(
-            {g: ParamGroup(tree["layers"][g]) for g in self.GROUPS})
+            {g: ParamGroup(given[g]) for g in self.groups})
         self.final_norm = ParamGroup(tree["final_norm"])
         self.lm_head = (_frozen(tree["lm_head"]) if "lm_head" in tree
                         else None)
@@ -86,7 +94,7 @@ class Transformer(nn.Module):
     def layer(self, index: int) -> Dict[str, Dict[str, torch.Tensor]]:
         """Layer ``index`` as the reference's per-layer param dict
         (views, no copies)."""
-        return {g: self.layers[g].as_dict(index) for g in self.GROUPS}
+        return {g: self.layers[g].as_dict(index) for g in self.groups}
 
     def head(self) -> torch.Tensor:
         return self.lm_head if self.lm_head is not None else self.embed.T
@@ -98,7 +106,7 @@ class Transformer(nn.Module):
         weights are this module's own Parameters, so a gradient taken
         with respect to them is one of the module's forward."""
         tree = {"embed": self.embed, "final_norm": self.final_norm.as_dict(),
-                "layers": {g: self.layers[g].as_dict() for g in self.GROUPS},
+                "layers": {g: self.layers[g].as_dict() for g in self.groups},
                 **self.cls, "lora": self.lora}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
@@ -147,11 +155,15 @@ def norm(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def lora_specs(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    """{target: (d_in, d_out)} for every configured LoRA target."""
+    """{target: (d_in, d_out)} for every configured LoRA target; Mamba2's
+    ``ssm_in`` is x -> [z, x, B, C, dt], ``ssm_out`` d_inner -> d."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     dims = {"q": (d, cfg.num_heads * hd), "k": (d, cfg.num_kv_heads * hd),
             "v": (d, cfg.num_kv_heads * hd), "o": (cfg.num_heads * hd, d),
-            "w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
+            "w1": (d, cfg.d_ff), "w3": (d, cfg.d_ff), "w2": (cfg.d_ff, d),
+            "ssm_in": (d, 2 * cfg.d_inner + 2 * cfg.ssm_state
+                       + cfg.ssm_heads),
+            "ssm_out": (cfg.d_inner, d)}
     specs = {}
     for t in cfg.lora.targets:
         if t not in dims:
@@ -272,6 +284,27 @@ def layer_forward(x: torch.Tensor, lp: Dict, ad: LoraTree, cfg: ModelConfig,
     return x + y, aux
 
 
+def run_layers(params: Transformer, x: torch.Tensor, cfg: ModelConfig,
+               layer, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x through every layer of ``params``: ``layer(x, lp, ad) -> (x,
+    aux)`` on each layer's views of the stacked weights and adapters, with
+    ``remat`` under ``torch.utils.checkpoint`` where autograd records.
+    Returns (x, the layers' aux summed)."""
+    stacked = {g: params.layers[g].as_dict() for g in params.groups}
+    auxs = []
+    for lp, ad in zip(unbind_layers(stacked, cfg.num_layers),
+                      unbind_layers(params.lora, cfg.num_layers)):
+        if remat and torch.is_grad_enabled():
+            # non-reentrant: the reentrant form does not support
+            # torch.autograd.grad, which the trainers take
+            x, aux = torch.utils.checkpoint.checkpoint(layer, x, lp, ad,
+                                                       use_reentrant=False)
+        else:
+            x, aux = layer(x, lp, ad)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             remat: bool = True, q_chunk: int = 1024,
             causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -295,19 +328,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         return layer_forward(x, lp, ad, cfg, causal=causal,
                              positions=positions, q_chunk=q_chunk)
 
-    stacked = {g: params.layers[g].as_dict() for g in Transformer.GROUPS}
-    auxs = []
-    for lp, ad in zip(unbind_layers(stacked, cfg.num_layers),
-                      unbind_layers(params.lora, cfg.num_layers)):
-        if remat and torch.is_grad_enabled():
-            # non-reentrant: the reentrant form does not support
-            # torch.autograd.grad, which the trainers take
-            x, aux = torch.utils.checkpoint.checkpoint(layer, x, lp, ad,
-                                                       use_reentrant=False)
-        else:
-            x, aux = layer(x, lp, ad)
-        auxs.append(aux)
-    aux = torch.stack(auxs).sum()
+    x, aux = run_layers(params, x, cfg, layer, remat)
     x = norm(x, params.final_norm.as_dict())
     if cfg.num_classes:
         return (x[:, 0, :] @ params.cls["cls_head"] + params.cls["cls_bias"],

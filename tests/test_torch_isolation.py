@@ -88,7 +88,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "obs/timeseries.py", "obs/slo.py", "obs/collect.py",
                 "obs/report.py", "fed/compress.py", "fed/population.py",
                 "fed/topology.py", "models/moe.py", "configs/olmoe_1b_7b.py",
-                "configs/llama4_maverick_400b_a17b.py"):
+                "configs/llama4_maverick_400b_a17b.py", "models/mamba2.py",
+                "configs/mamba2_2_7b.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

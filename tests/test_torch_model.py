@@ -220,11 +220,14 @@ def test_init_params_shapes_and_scales(arch):
 
 
 def test_non_dense_families_raise():
-    cfg = get_reduced("gemma-2b").with_(arch_type="ssm")
-    with pytest.raises(NotImplementedError):
-        t_model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_model.init_cache(cfg, 1, 4, device="cpu")
+    """The families not ported yet (hybrid, audio, vlm) raise; ``ssm`` is
+    taken (``tests/test_torch_mamba2.py``)."""
+    for arch_type in ("hybrid", "audio", "vlm"):
+        cfg = get_reduced("gemma-2b").with_(arch_type=arch_type)
+        with pytest.raises(NotImplementedError):
+            t_model.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            t_model.init_cache(cfg, 1, 4, device="cpu")
 
 
 def test_interop_carries_moe_leaves_one_to_one():
