@@ -31,9 +31,10 @@ Phases, each of which raises on failure:
    and 2048 -> 256 projections), at two ragged shapes (one taking the
    kernels with element loads), at M 8 through OLMoE-1B-7B's decode
    projections (2048 -> 2048, timed with its bound), at M = 1 on
-   Gemma-2B's widths, and at Mamba2-2.7B's ssm_in (2560 -> 10576) and
-   ssm_out (5120 -> 2560) at M 1024 and M 8 (forward, dx and dA/dB timed
-   with their bounds), each
+   Gemma-2B's widths, at Mamba2-2.7B's ssm_in (2560 -> 10576) and
+   ssm_out (5120 -> 2560) and at Hymba-1.5B's ssm_in (1600 -> 6482, element
+   loads) at M 1024 and M 8 (forward, dx and dA/dB timed with their
+   bounds), each
    at the other split count and with an operand off 16-byte alignment,
    with each plan and the kernels' registers, the same bits on
    a second call, and cuBLAS's base products timed beside them; its
@@ -44,8 +45,9 @@ Phases, each of which raises on failure:
    (48 items, Kc 2 (a two-edge root merge), 4, 5 (an async flush of 4
    updates and the global) and 20, d 1024, R 8), ragged, at rank 16 and in
    the single-item form, with the same bits on a second call;
-4. engine: ``ServeEngine`` serving full-width Gemma-2B (float32, random
-   weights from a seed) with four adapters of ranks 2/4/6/8 for 8 requests,
+4. engine: ``ServeEngine`` serving full-width Gemma-2B at
+   ``SERVE_LAYERS`` of its 18 layers (float32, random weights from a seed;
+   phases 5 and 14 serve the same weights) with four adapters of ranks 2/4/6/8 for 8 requests,
    every kernel's launch count above 0, and every request's tokens equal to
    the merged-weight oracle; the same 8 requests again through an engine
    with ``Recorder(annotate=True)``, a registry and two SLO classes: tokens
@@ -225,18 +227,19 @@ Phases, each of which raises on failure:
    30 steps of 16 x 64: finite losses, aux > 0, the last 5 below the
    first, 32/16/16 launches a step, step p50 and peak memory;
 16. the Mamba2 state-space family on full-width Mamba2-2.7B (64 layers,
-   d_inner 5120, 80 SSD heads of 64, state 128, 2.70 B parameters; run
-   after phase 15, with its weights freed): (a) at full width, the
+   d_inner 5120, 80 SSD heads of 64, state 128, 2.70 B parameters; (b) and
+   (c) at ``MAMBA_DEPTH`` of the 64 layers; run after phase 15, with its
+   weights freed): (a) at full width, the
    chunked SSD scan on layer 0's own inputs (2 x 256 tokens: two chunks,
    from a random initial state) and ``mamba_mixer`` on the card against
    their float64 evaluation on the CPU (``MAMBA_SSD_REL``), then one LM ``train`` step at 2 layers on
    2 x 256 tokens (phase 11 (a)'s limits, 8/4/4 launches); (b)
-   ``make_cohort_train`` at full depth, backbone frozen, 4 clients (ranks
+   ``make_cohort_train``, backbone frozen, 4 clients (ranks
    2/4/6/8 on ssm_in and ssm_out) x 4 steps of 4 x 256 bigram tokens:
    finite losses, factors moved, masked directions unchanged, 128 of each
    lora kernel a step, step p50, tok/s, 2 profiled steps with the SSD
    scan's device time apart; then one factored ``AggregationEngine`` call
-   on the 4 updates (no kernel launched), layers 0 and 63 of each shape
+   on the 4 updates (no kernel launched), layers 0 and 31 of each shape
    group held to float64 Eq. 2-3 (phase 7's spectra, Eckart-Young and
    client-update limits); (c) 8 prompts of 256 tokens teacher-forced
    through ``decode_step`` against ``forward`` (``MAMBA_DECODE_REL``),
@@ -244,7 +247,30 @@ Phases, each of which raises on failure:
    step; (d) the LM example's ``train`` at 8 layers, every parameter, 30
    steps of 16 x 64: finite losses, the last 5 below the first, 32/16/16
    launches a step, peak memory;
-17. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+17. the Hymba hybrid family on full-width Hymba-1.5B (32 layers, d_model
+   1600, 25 attention heads (5 KV) with a 2048-token window beside 50 SSD
+   heads of 64, state 16, 1.64 B parameters; run after phase 16, with its
+   weights freed): (a) at full width, ``hybrid_layer`` of layer 0 on 2 x
+   256 tokens on the card against its float64 evaluation on the CPU
+   (``HYMBA_LAYER_REL``), one LM ``train`` step at 2 layers on 2 x 256
+   tokens (phase 11 (a)'s limits, 24/12/12 launches), and at 2 layers 2
+   rows of 2176 tokens through ``forward`` and teacher-forced through
+   ``decode_step`` past the window, its 2048-slot ring wrapped, every
+   position within ``HYMBA_DECODE_REL`` and a control without the window
+   outside it; (b) ``make_cohort_train`` at full depth, backbone frozen, 4
+   clients (ranks 2/4/6/8 on q, k, v, o, ssm_in and ssm_out) x 4 steps of
+   4 x 256 bigram tokens: finite losses, factors moved, masked directions
+   unchanged, 192 of each lora kernel a step, step p50, tok/s, 2 profiled
+   steps with attention's and the SSD scan's device time apart; then one
+   factored ``AggregationEngine`` call on the 4 updates (four shape
+   groups, no kernel launched), layers 0 and 31 of each target held to
+   float64 Eq. 2-3; (c) 8 prompts of 64 tokens teacher-forced through
+   ``decode_step`` against ``forward`` (``HYMBA_DECODE_REL``), then 16
+   greedy steps twice for the same bits, 192 ``lora_matmul`` a step; (d)
+   the LM example's ``train`` at 4 layers, every parameter, 30 steps of 16
+   x 64: finite losses, the last 5 below the first, 48/24/24 launches a
+   step, peak memory;
+18. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -272,6 +298,16 @@ PEAK_OPS_PER_S = {"float32": 67e12,        # CUDA cores, no tensor cores
 # in other orders (kernels, batch 8 vs batch 1, merged vs factored LoRA),
 # which moves O(1) logits by far less than 1e-3 but can flip a near-tie.
 GAP_TOL = 1e-3
+# The serving phases (4, 5 and 14, one set of Gemma-2B weights at full
+# width) run at 6 of the model's 18 layers. Their time is host dispatch a
+# layer (decode steps, the merged-weight oracle's token-by-token decode),
+# and at full depth they took ~240 of 1185.7 s of the whole script on a
+# slow host (NVIDIA H100 80GB HBM3, 700.00 W), past the 1050 s this script
+# keeps under its 1200 s limit once phase 17 was added; of the full-depth
+# phases, their depth bought the most seconds. Every check and step stays;
+# the launch counts, the bf16 bound (bf16_logit_rel) and the oracles follow
+# the depth.
+SERVE_LAYERS = 6
 
 # bfloat16 serving against float32 serving, or two bfloat16 evaluations that
 # round in different places (tests/test_torch_serve_bf16.py holds the port
@@ -907,7 +943,9 @@ def verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1, ps):
 # multiples of 4: the kernels with element loads), OLMoE-1B-7B's decode
 # step (M 8), the merged-weight oracle's M = 1 on Gemma-2B's widths, and
 # Mamba2-2.7B's ssm_in (2560 -> 10576) and ssm_out (5120 -> 2560) at its
-# fine-tuning step (4 x 256 tokens) and its decode step (M 8).
+# fine-tuning step (4 x 256 tokens) and its decode step (M 8), and
+# Hymba-1.5B's ssm_in (1600 -> 6482, N not a multiple of 4: the forward's
+# and dx's kernels with element loads) at the same two.
 # The first is the kernels line's; every shape whose M is in TIMED_M is
 # timed (dA/dB too, past the first), and the forward, dx and dA/dB at
 # every M in DECODE_M.
@@ -938,6 +976,10 @@ LORA_SHAPES = [
      5120, 2560, 8),
     ("decode: 8 rows through Mamba2-2.7B's ssm_in", 8, 2560, 10576, 8),
     ("decode: 8 rows through Mamba2-2.7B's ssm_out", 8, 5120, 2560, 8),
+    ("fine-tuning: 4 x 256 tokens through Hymba-1.5B's ssm_in (element "
+     "loads: N 6482)", 1024, 1600, 6482, 8),
+    ("decode: 8 rows through Hymba-1.5B's ssm_in (element loads: N 6482)",
+     8, 1600, 6482, 8),
 ]
 
 
@@ -1574,7 +1616,7 @@ def run_engine(torch, np) -> dict:
     from repro_torch.serve.oracle import make_demo_adapter, \
         merged_greedy_gaps
 
-    cfg = get_config("gemma-2b")
+    cfg = get_config("gemma-2b").with_(num_layers=SERVE_LAYERS)
     steps, page_size, chunk = 32, 16, 64
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=0, device="cuda")
@@ -1587,8 +1629,9 @@ def run_engine(torch, np) -> dict:
     for aid, tree in adapters.items():
         registry.register(aid, tree)
     torch.cuda.synchronize()
-    log(f"  gemma-2b full width: {cfg.param_count() / 1e9:.3f} B params "
-        f"float32, set-up {time.perf_counter() - t0:.1f} s")
+    log(f"  gemma-2b full width, {cfg.num_layers} layers: "
+        f"{cfg.param_count() / 1e9:.3f} B params float32, set-up "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     lens = rng.integers(40, 201, size=8)
     prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -1762,13 +1805,20 @@ def train_group(key: str) -> str:
                  if any(k in key for k in keys)), "other")
 
 
+def _names(annotation) -> tuple:
+    """``profile_window``'s ``annotation``: None, one name or a tuple."""
+    if annotation is None:
+        return ()
+    return (annotation,) if isinstance(annotation, str) else tuple(annotation)
+
+
 def group_ms(events, group, annotation=None) -> dict:
     """Device ms by group of ``profile_window``'s events; a kernel launched
-    inside the ``annotation`` range counts under the annotation's name."""
+    inside an ``annotation`` range counts under the annotation's name."""
     by_group = {}
     for key, ms, _ in events:
-        g = annotation if annotation is not None and key.startswith(
-            f"{annotation}: ") else group(key)
+        g = next((a for a in _names(annotation)
+                  if key.startswith(f"{a}: ")), None) or group(key)
         by_group[g] = by_group.get(g, 0.0) + ms
     return by_group
 
@@ -1780,10 +1830,11 @@ def profile_window(torch, label, fn, group=serve_group,
     of the call) and device time by group and by kernel. The device events
     are read from the exported trace, which the profiler writes from its
     C++ side: ``key_averages`` builds a Python object an event and spent
-    ~95 s on a federated round's events. With ``annotation``, the device
-    events launched from inside a ``record_function(annotation)`` range
-    (matched through the launch's correlation id) form a group of that
-    name, keyed "annotation: kernel". Returns (name, ms, launches) per
+    ~95 s on a federated round's events. With ``annotation`` (a name or a
+    tuple of names of ranges that do not nest), the device events launched
+    from inside a ``record_function(annotation)`` range (matched through
+    the launch's correlation id) form a group of that name, keyed
+    "annotation: kernel". Returns (name, ms, launches) per
     kernel, the largest first. ``ranges``, a dict, gains the count of each
     ``record_function`` range in the trace by name."""
     import tempfile
@@ -1800,30 +1851,35 @@ def profile_window(torch, label, fn, group=serve_group,
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)["traceEvents"]
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in trace
-             if e.get("cat") == "user_annotation"
-             and e.get("name") == annotation]
+    names = _names(annotation)
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in trace
+             if e.get("cat") == "user_annotation" and e.get("name") in names]
     if ranges is not None:
         for e in trace:
             if e.get("cat") == "user_annotation":
                 ranges[e["name"]] = ranges.get(e["name"], 0) + 1
-    inside = {e["args"]["correlation"] for e in trace
-              if e.get("cat") in ("cuda_runtime", "cuda_driver")
-              and "correlation" in e.get("args", {})
-              and any(a <= e["ts"] <= b for a, b in spans)}
+    inside = {}
+    for e in trace:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})):
+            name = next((n for a, b, n in spans if a <= e["ts"] <= b), None)
+            if name is not None:
+                inside[e["args"]["correlation"]] = name
     by_kernel = {}
     for e in trace:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             key = e["name"]
-            if e.get("args", {}).get("correlation") in inside:
-                key = f"{annotation}: {key}"
+            name = inside.get(e.get("args", {}).get("correlation"))
+            if name is not None:
+                key = f"{name}: {key}"
             ms, n = by_kernel.get(key, (0.0, 0))
             by_kernel[key] = (ms + e["dur"] / 1e3, n + 1)
     if not by_kernel:
         raise AssertionError(f"profiled {label}: no device events traced")
-    if annotation is not None and not inside:
-        raise AssertionError(f"profiled {label}: no device event launched "
-                             f"inside {annotation!r}")
+    for name in names:
+        if name not in inside.values():
+            raise AssertionError(f"profiled {label}: no device event "
+                                 f"launched inside {name!r}")
     events = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()),
                     key=lambda e: -e[1])
     device_ms = sum(ms for _, ms, _ in events)
@@ -4060,8 +4116,8 @@ def _lm_example():
 
 def _lm_expect(ops, cfg, remat: bool) -> dict:
     """Launches of one LM step of ``cfg``: its adapted projections in every
-    layer (q, k, v and o; Mamba2's ssm_in and ssm_out), the forward twice
-    under remat (the backward runs each layer again)."""
+    layer (q, k, v and o; Mamba2's ssm_in and ssm_out; Hymba's six), the
+    forward twice under remat (the backward runs each layer again)."""
     per = len(cfg.lora.targets) * cfg.num_layers
     expect = {name: 0 for name in ops.LAUNCHES}
     expect.update(lora_matmul=per * (2 if remat else 1),
@@ -5987,9 +6043,9 @@ def moe_decode(torch, np, cfg, params) -> dict:
 
 def family_lm_loop(torch, np, example, cfg, spec) -> dict:
     """(d) the example's ``train`` at full width and ``spec``'s depth
-    (``MOE_LM``, ``MAMBA_LM``), every parameter: the loss falls, the aux
-    term is > 0 every step for a MoE decoder and 0 otherwise. Returns the
-    lora kernels' launches."""
+    (``MOE_LM``, ``MAMBA_LM``, ``HYMBA_LM``), every parameter: the loss
+    falls, the aux term is > 0 every step for a MoE decoder and 0
+    otherwise. Returns the lora kernels' launches."""
     from repro_torch.data import make_bigram_lm
     from repro_torch.fed import simulation
     from repro_torch.kernels import ops
@@ -6134,14 +6190,20 @@ MAMBA_ARCH = "mamba2-2.7b"
 MAMBA_SSD = dict(batch=2, seq=256, init_std=0.1)
 MAMBA_SSD_REL = 1e-5
 MAMBA_STEP = dict(layers=2, batch=2, seq=256, q_chunk=64, lr=3e-3)
-# (b) HLoRA fine-tuning at full depth: 4 clients (ranks 2/4/6/8 on ssm_in
+# (b) HLoRA fine-tuning at MAMBA_DEPTH: 4 clients (ranks 2/4/6/8 on ssm_in
 # and ssm_out), 4 local steps each of 4 x 256 bigram tokens, backbone
 # frozen; then one factored merge of the 4 updates with weights eta in
-# MAMBA_ETA, layers 0 and 63 of each shape group held to float64 Eq. 2-3
-MAMBA_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=4, seq=256)
+# MAMBA_ETA, the first and last layer of each shape group held to float64
+# Eq. 2-3
+MAMBA_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=4, seq=256, profiled=2)
+# (b) and (c) run at 32 of the model's 64 layers: at 64 they took 75.4 of
+# 1185.7 s of the whole script on a slow host (NVIDIA H100 80GB HBM3,
+# 700.00 W), and after the serving phases' cut (SERVE_LAYERS) this depth
+# bought the most of the seconds the script still had to give back to stay
+# under 1050 s with phase 17 in it; every step and check stays
+MAMBA_DEPTH = 32
 MAMBA_ETA = (1.0, 2.0, 3.0, 4.0)
-MAMBA_PROFILED = 2
-# (c) decode at full depth: 8 prompts of 256 tokens teacher-forced through
+# (c) decode at MAMBA_DEPTH: 8 prompts of 256 tokens teacher-forced through
 # decode_step against forward's logits (two SSD chunks), every position
 # within MAMBA_DECODE_REL of the logits' largest magnitude. Derivation,
 # fixed before the first run on the card: decode and forward sum the same
@@ -6151,7 +6213,8 @@ MAMBA_PROFILED = 2
 # 2 x 256 tokens, the error was 1.95e-6 of the scale at 2 layers and
 # 3.19e-6 at 4, about 7e-7 at the head and 6.2e-7 added a layer; growing
 # linearly (the worst case: the residual stream carries every layer's error
-# on) over 64 layers gives 4.0e-5, and five times that leaves room for the
+# on) over 64 layers gives 4.0e-5 (32 layers, 2.1e-5), and five times that
+# leaves room for the
 # card's reduction orders (cuBLAS and the lora kernel's splits): 2e-4, ten
 # times inside the reference test's 2e-3 (tests/test_models.py). Then 16
 # greedy steps from the teacher-forced cache, twice for the same bits
@@ -6240,10 +6303,13 @@ def mamba_ssd_against_cpu(torch, cfg_full) -> None:
                                  f"float64, over {MAMBA_SSD_REL}")
 
 
-def mamba_finetune(torch, np, cfg, params) -> tuple:
-    """(b) ``make_cohort_train`` at full depth: 4 clients at ranks 2/4/6/8
-    on ssm_in and ssm_out, 4 steps each, backbone frozen. Returns (the lora
-    kernels' launches, the trained cohort {target: {"A", "B", "mask"}})."""
+def family_finetune(torch, np, cfg, params, spec, ranged) -> tuple:
+    """(b) ``make_cohort_train`` at full depth: ``spec``'s clients
+    (``MAMBA_TUNE``, ``HYMBA_TUNE``) at their ranks on every LoRA target,
+    its steps each, backbone frozen; then two profiled steps with the
+    device time of each ``ranged`` function apart ({range name: (module,
+    attribute)}, e.g. the SSD scan). Returns (the lora kernels' launches,
+    the trained cohort {target: {"A", "B", "mask"}})."""
     from repro_torch.core.lora import make_rank_mask
     from repro_torch.data import make_bigram_lm
     from repro_torch.fed import (SimConfig, client as client_mod,
@@ -6255,8 +6321,8 @@ def mamba_finetune(torch, np, cfg, params) -> tuple:
     from repro_torch.models import model as model_lib
     from repro_torch.optim import adamw, tree_map
 
-    ranks, n_steps = MAMBA_TUNE["ranks"], MAMBA_TUNE["steps"]
-    bsz, seq = MAMBA_TUNE["batch"], MAMBA_TUNE["seq"]
+    ranks, n_steps = spec["ranks"], spec["steps"]
+    bsz, seq = spec["batch"], spec["seq"]
     L, r_max = cfg.num_layers, cfg.lora.r_max
     lr = SimConfig().lr
     frozen, head = split_head(params)
@@ -6310,6 +6376,7 @@ def mamba_finetune(torch, np, cfg, params) -> tuple:
     tokens = len(steps) * bsz * seq
     ok = (finite and aux_ok and all(moved) and not bad
           and len(steps) == len(ranks) * n_steps)
+    first = [t for t in cfg.lora.targets if t in ("q", "k", "v", "ssm_in")]
     log(f"  (b) HLoRA fine-tuning, {L} layers ({cfg.param_count() / 1e9:.3f}"
         f" B parameters), frozen; {len(ranks)} clients at ranks {ranks} on "
         f"{cfg.lora.targets}, {n_steps} steps each of {bsz} x {seq} tokens "
@@ -6322,9 +6389,10 @@ def mamba_finetune(torch, np, cfg, params) -> tuple:
         f"mean {[round(float(x), 4) for x in losses]}; every loss finite "
         f"{finite}, aux 0 {aux_ok}; every client's factors moved "
         f"{all(moved)}, masked directions bit-unchanged; launches a step "
-        f"{steps[0]['launches']} (expect {per} of each lora kernel: ssm_in "
-        f"and ssm_out in {L} layers; layer 0's ssm_in dx launch computes g "
-        f"alone) {'ok' if ok else 'FAIL'}")
+        f"{steps[0]['launches']} (expect {per} of each lora kernel: "
+        f"{len(cfg.lora.targets)} targets in {L} layers; layer 0's dx "
+        f"launches on {first}, whose input is the norm of the frozen "
+        f"embedding, compute g alone) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"(b) fine-tuning: launches differ at steps "
                              f"{bad[:5]}, finite {finite}, aux {aux_ok}, "
@@ -6332,59 +6400,70 @@ def mamba_finetune(torch, np, cfg, params) -> tuple:
     launches = {name: sum(st["launches"][name] for st in steps) for name in
                 ("lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
 
-    # two more steps under the profiler, the SSD scan in a range
-    scan = ssm_lib.ssd_chunked
-
-    def ranged(*args, **kw):
-        with torch.profiler.record_function("ssd"):
-            return scan(*args, **kw)
+    # two more steps under the profiler, each ranged function in its range
+    def in_range(name, fn):
+        def wrapped(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return wrapped
 
     def two_steps():
         make_local_train(cfg, adamw(lr), device="cuda")(
             frozen, tree_map(lambda t: t[0], trainable),
             tree_map(lambda t: t[0], masks),
-            {k: v[0, :MAMBA_PROFILED] for k, v in data.items()})
+            {k: v[0, :spec["profiled"]] for k, v in data.items()})
 
-    ssm_lib.ssd_chunked = ranged
+    kept = {name: getattr(mod, attr) for name, (mod, attr) in ranged.items()}
+    for name, (mod, attr) in ranged.items():
+        setattr(mod, attr, in_range(name, kept[name]))
     try:
-        events = profile_window(torch, f"{MAMBA_PROFILED} fine-tuning steps",
-                                two_steps, group=train_group,
-                                annotation="ssd")
+        events = profile_window(torch, f"{spec['profiled']} fine-tuning "
+                                f"steps", two_steps, group=train_group,
+                                annotation=tuple(ranged))
     finally:
-        ssm_lib.ssd_chunked = scan
-    groups = group_ms(events, train_group, "ssd")
+        for name, (mod, attr) in ranged.items():
+            setattr(mod, attr, kept[name])
+    groups = group_ms(events, train_group, tuple(ranged))
     log("  (b) device ms a step: " + ", ".join(
-        f"{k} {v / MAMBA_PROFILED:.3f}" for k, v in sorted(groups.items()))
-        + " (ssd: the chunked scan's forward, launched inside its range; "
-        "its backward falls under other)")
+        f"{k} {v / spec['profiled']:.3f}" for k, v in sorted(groups.items()))
+        + f" ({', '.join(ranged)}: the forward's kernels launched inside "
+        f"each range; their backward falls under other)")
     return launches, join_adapters(trained["factors"], masks)
 
 
-def mamba_aggregate(torch, np, cfg, cohort) -> None:
+def family_aggregate(torch, np, cfg, cohort, eta) -> None:
     """(b) one ``AggregationEngine`` call, the default factored method, on
-    the 4 updates: two shape groups of 64 items, no kernel launched; layers
-    0 and 63 of each held to float64 Eq. 2-3 of the collected factors
-    (phase 7's (b) spectra, (c) Eckart-Young and (d) client updates)."""
+    the cohort's updates with weights ``eta``: one shape group a distinct
+    (d_in, d_out), no kernel launched; layers 0 and L-1 of each target held
+    to float64 Eq. 2-3 of the collected factors (phase 7's (b) spectra,
+    (c) Eckart-Young and (d) client updates)."""
     from repro_torch.core.agg_engine import AggregationEngine
     from repro_torch.kernels import ops
 
     alpha, r_max = cfg.lora.alpha, cfg.lora.r_max
-    eta = torch.tensor(MAMBA_ETA, dtype=torch.float32, device="cuda")
-    ranks = [int(x) for x in cohort["ssm_in"]["mask"][:, 0].sum(-1)]
+    weights = torch.tensor(eta, dtype=torch.float32, device="cuda")
+    first = next(iter(cohort.values()))
+    ranks = [int(x) for x in first["mask"][:, 0].sum(-1)]
+    shapes = {}
+    for t, ad in cohort.items():
+        shapes.setdefault((ad["A"].shape[-2], ad["B"].shape[-1]), []).append(t)
     engine = AggregationEngine()
     log(f"  (b) cohort A shapes "
         f"{ {t: tuple(ad['A'].shape) for t, ad in cohort.items()} }, ranks "
-        f"{ranks}, eta {MAMBA_ETA}, alpha {alpha}: two shape groups of "
-        f"{cfg.num_layers} items, Kc R = {len(ranks) * r_max}")
+        f"{ranks}, eta {eta}, alpha {alpha}: {len(shapes)} shape groups "
+        + ", ".join(f"{d_in} x {d_out} ({'/'.join(ts)}: "
+                    f"{len(ts) * cfg.num_layers} items)"
+                    for (d_in, d_out), ts in shapes.items())
+        + f", Kc R = {len(ranks) * r_max}")
     (out, spectra), _ = counted_call(
         torch, ops, "(b) factored aggregation", 0,
-        lambda: engine(cohort, eta, alpha))
+        lambda: engine(cohort, weights, alpha))
     time_calls(torch, np, "(b) factored aggregation",
-               lambda: engine(cohort, eta, alpha), 1)
+               lambda: engine(cohort, weights, alpha), 1)
     held = [0, cfg.num_layers - 1]
     for t in sorted(cohort):
         sub = {t: {k: v[:, held] for k, v in cohort[t].items()}}
-        a, b, coef = dense_inputs(torch, sub, eta, alpha)
+        a, b, coef = dense_inputs(torch, sub, weights, alpha)
         n_items, kc, d_in, rr = a.shape
         p64 = (a.double() * coef.double()[:, :, None, None]).permute(
             0, 2, 1, 3).reshape(n_items, d_in, kc * rr)
@@ -6401,23 +6480,28 @@ def mamba_aggregate(torch, np, cfg, cohort) -> None:
         del dw, trunc, upd, p64
 
 
-def mamba_decode(torch, np, cfg, params) -> dict:
-    """(c) decode at full depth through ``model.init_cache`` and
-    ``decode_step``: teacher-forced against ``forward``, then greedy steps
-    twice. Returns the lora_matmul launches of the greedy steps."""
+def family_decode(torch, np, cfg, params, spec, rel) -> dict:
+    """(c) decode at full depth through ``model.init_cache`` (room for the
+    prompt and the greedy steps) and ``decode_step``: ``spec``'s prompts
+    (``MAMBA_DECODE``, ``HYMBA_DECODE``) teacher-forced against
+    ``forward`` within ``rel`` of the logits' largest magnitude, then its
+    greedy steps twice. Returns the lora_matmul launches of the greedy
+    steps."""
     from repro_torch.data import make_bigram_lm
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
+    from repro_torch.optim import tree_map
+    from repro_torch.optim.optimizers import tree_leaves
 
-    rows, plen = MAMBA_DECODE["rows"], MAMBA_DECODE["prompt"]
+    rows, plen = spec["rows"], spec["prompt"]
     prompts = torch.from_numpy(make_bigram_lm(
         rows, plen, LM_DATA_VOCAB, seed=4)["tokens"]).to("cuda")
     t0 = time.perf_counter()
     with torch.no_grad():
         logits, _ = model_lib.forward(params, {"tokens": prompts}, cfg,
                                       remat=False)
-    cache = model_lib.init_cache(cfg, rows, plen, torch.float32,
-                                 device="cuda")
+    cache = model_lib.init_cache(cfg, rows, plen + spec["greedy"],
+                                 torch.float32, device="cuda")
     err = torch.zeros((), device="cuda")
     for t in range(plen):
         lg, cache = model_lib.decode_step(params, cache, prompts[:, t:t + 1],
@@ -6427,26 +6511,28 @@ def mamba_decode(torch, np, cfg, params) -> dict:
     scale = float(logits.abs().max())
     err = float(err)
     torch.cuda.synchronize()
-    ok = err <= MAMBA_DECODE_REL * scale and finite
-    state_mb = cache["state"][0, 0].numel() * 4 * cfg.num_layers / 1e6
+    ok = err <= rel * scale and finite
+    row_mb = sum(c.numel() * c.element_size()
+                 for c in tree_leaves(cache)) / rows / 1e6
     log(f"  (c) {rows} prompts of {plen} tokens teacher-forced through "
-        f"decode (float32 cache: SSD state {state_mb:.1f} MB a row): max "
-        f"|decode - forward| {err:.3e} over every position, the logits' max "
-        f"{scale:.3f}: err/scale {err / scale:.2e} (<= "
-        f"{MAMBA_DECODE_REL:.0e}); {time.perf_counter() - t0:.1f} s "
-        f"{'ok' if ok else 'FAIL'}")
+        f"decode (float32 cache, {row_mb:.1f} MB a row: "
+        f"{ {'/'.join(k): tuple(v.shape) for k, v in _leaf_paths(cache).items()} }"
+        f"): "
+        f"max |decode - forward| {err:.3e} over every position, the logits' "
+        f"max {scale:.3f}: err/scale {err / scale:.2e} (<= {rel:.0e}); "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"(c) decode against forward: {err} > "
-                             f"{MAMBA_DECODE_REL} x {scale}, finite {finite}")
+                             f"{rel} x {scale}, finite {finite}")
     del logits
 
     def greedy():
         """Greedy steps from a copy of the teacher-forced cache: every
         step's logits, launches and times."""
-        run = {k: v.clone() for k, v in cache.items()}
+        run = tree_map(lambda c: c.clone(), cache)
         tok = lg.argmax(-1, keepdim=True)
         out, launches, walls = [], [], []
-        for t in range(plen, plen + MAMBA_DECODE["greedy"]):
+        for t in range(plen, plen + spec["greedy"]):
             torch.cuda.synchronize()
             start = time.perf_counter()
             ops.reset_launches()
@@ -6466,13 +6552,14 @@ def mamba_decode(torch, np, cfg, params) -> dict:
     bad = [i for i, got in enumerate(launches) if got != expect]
     finite = bool(first.isfinite().all())
     ok = same and finite and not bad
-    log(f"  (c) {MAMBA_DECODE['greedy']} greedy steps after the prompts: "
+    log(f"  (c) {spec['greedy']} greedy steps after the prompts: "
         f"logits finite {finite}; a second run bit for bit {same}; decode "
         f"step p50 {np.median(walls) * 1e3:.3f} ms (min "
         f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}; "
         f"{rows * len(walls) / sum(walls):.1f} tok/s); launches a step "
-        f"{launches[0]} (expect {expect['lora_matmul']} lora_matmul: ssm_in "
-        f"and ssm_out in {cfg.num_layers} layers) {'ok' if ok else 'FAIL'}")
+        f"{launches[0]} (expect {expect['lora_matmul']} lora_matmul: "
+        f"{len(cfg.lora.targets)} targets in {cfg.num_layers} layers) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"(c) greedy decode: same bits {same}, finite "
                              f"{finite}, launches differ at steps {bad[:5]}")
@@ -6481,8 +6568,8 @@ def mamba_decode(torch, np, cfg, params) -> dict:
 
 def run_mamba_phase(torch, np) -> dict:
     """Phase 16 on Mamba2-2.7B: (a) card against CPU at 2 layers, (b)
-    fine-tuning and its aggregation and (c) decode at full depth on one set
-    of weights, (d) LM training at 8 layers; each part's time and the peak
+    fine-tuning and its aggregation and (c) decode at ``MAMBA_DEPTH`` on
+    one set of weights, (d) LM training at 8 layers; each part's time and the peak
     memory. Returns the lora kernels' launches of (a)-(d)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -6500,23 +6587,27 @@ def run_mamba_phase(torch, np) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    deep = cfg.with_(num_layers=MAMBA_DEPTH)
+    params = model_lib.init_params(deep, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"  {cfg.name} at full width and depth: {cfg.num_layers} layers, "
-        f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} "
-        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
-        f"{cfg.vocab_size}: {cfg.param_count() / 1e9:.3f} B parameters "
-        f"float32 from seed 0 on the card in {time.perf_counter() - t1:.1f} "
-        f"s")
-    tuned, cohort = mamba_finetune(torch, np, cfg, params)
+    log(f"  {cfg.name} at full width, {deep.num_layers} of its "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}: "
+        f"{deep.param_count() / 1e9:.3f} B parameters float32 from seed 0 "
+        f"on the card in {time.perf_counter() - t1:.1f} s")
+    from repro_torch.models import mamba2 as ssm_lib
+    tuned, cohort = family_finetune(torch, np, deep, params, MAMBA_TUNE,
+                                    {"ssd": (ssm_lib, "ssd_chunked")})
     for name, n in tuned.items():
         launches[name] += n
-    mamba_aggregate(torch, np, cfg, cohort)
+    family_aggregate(torch, np, deep, cohort, MAMBA_ETA)
     del cohort
     gc.collect()
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    for name, n in mamba_decode(torch, np, cfg, params).items():
+    for name, n in family_decode(torch, np, deep, params, MAMBA_DECODE,
+                                 MAMBA_DECODE_REL).items():
         launches[name] += n
     t3 = time.perf_counter()
     del params
@@ -6527,6 +6618,240 @@ def run_mamba_phase(torch, np) -> dict:
     t4 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  phase 16 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
+        f"{device_line()}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the Hymba hybrid family on full-width Hymba-1.5B
+# ---------------------------------------------------------------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+# (a) the card against the CPU at full width, from one set of weights (seed
+# 0 on the CPU, live adapters on all six targets, copied across):
+# hybrid_layer on layer 0 for 2 x 256 tokens (two SSD chunks of 128), held
+# as phase 16 (a) holds the mixer: the card within HYMBA_LAYER_REL of a
+# float64 evaluation of the same code on the CPU, over the largest float64
+# magnitude (the SSD scan's float32 orders part by ~1e-5 of its own max on
+# two devices; the CPU's float32 distance is printed, not held). That
+# evaluation is float64 but for attention's scores, which ``attention``
+# forms in float32 (q and k rounded by ~6e-8 of themselves).
+HYMBA_LAYER = dict(batch=2, seq=256)
+HYMBA_LAYER_REL = 1e-5
+# then one LM step at 2 layers on 2 x 256 tokens (phase 11 (a)'s limits;
+# 24/12/12 launches: six targets in 2 layers, the forward twice under remat)
+HYMBA_STEP = dict(layers=2, batch=2, seq=256, q_chunk=64, lr=3e-3)
+# then the window and the ring on the card at 2 layers: 2 rows of 2176
+# tokens (17 SSD chunks; 128 positions past the 2048-token window) through
+# forward, and teacher-forced through decode_step from init_cache(max_seq
+# 2176), a ring of 2048 slots that wraps at position 2048; every position's
+# logits within HYMBA_DECODE_REL of forward's largest magnitude, and a
+# control, forward without the window, outside it past position 2048
+HYMBA_WINDOW = dict(layers=2, rows=2, seq=2176)
+# (b) HLoRA fine-tuning at full depth: 4 clients (ranks 2/4/6/8 on all six
+# targets), 4 local steps each of 4 x 256 bigram tokens, backbone frozen;
+# then one factored merge of the 4 updates with weights eta in HYMBA_ETA
+# (four shape groups: q/o 1600 x 1600, k/v 1600 x 320, ssm_in 1600 x 6482,
+# ssm_out 3200 x 1600), layers 0 and 31 of each target held to float64
+# Eq. 2-3
+HYMBA_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=4, seq=256, profiled=2)
+HYMBA_ETA = (1.0, 2.0, 3.0, 4.0)
+# (c) decode at full depth: 8 prompts of 64 tokens (one SSD chunk, inside
+# the window) teacher-forced through decode_step against forward's logits,
+# then 16 greedy steps from the teacher-forced cache, twice for the same
+# bits. HYMBA_DECODE_REL holds both (a)'s window check and (c): phase 16's
+# 2e-4 of the logits' largest magnitude, ten times inside the reference
+# test's 2e-3 (tests/test_models.py). Derivation, fixed before the first
+# run on the card: decode and forward sum the same float32 products in
+# other orders (the SSD recurrence against the chunk's exp of a cumulative
+# sum; the projections at M 8 against M 512; attention over the ring's
+# slots in ring order against the keys in sequence order). On the CPU at
+# full width the error was 1.65e-6 of the logits' scale at 2 layers over
+# 2176 tokens (1.55e-6 past the window, the ring wrapped; the control
+# 1.78e-2 there), and 1.78e-6 and 2.24e-6 at 2 and 4 layers over 64 (8
+# rows): about 1.3e-6 at the head and 2.3e-7 added a layer, growing
+# linearly (the worst case) to 8.7e-6 at 32 layers; 2e-4 leaves twenty
+# times that for the card's reduction orders (cuBLAS, the lora kernel's
+# splits)
+HYMBA_DECODE = dict(rows=8, prompt=64, greedy=16)
+HYMBA_DECODE_REL = 2e-4
+# (d) the LM example's train at full width, depth cut to 4 layers (AdamW
+# over all 1.64 B parameters would hold ~26 GB of state before
+# activations, and 4 layers keep phase 17 inside its 90 s), every
+# parameter: 30 steps of 16 x 64 tokens (one SSD chunk of 64)
+HYMBA_LM = dict(layers=4, steps=30, batch=16, seq=64, lr=3e-3, q_chunk=64)
+
+
+def hymba_layer_against_cpu(torch, cfg_full) -> None:
+    """(a) ``hybrid_layer`` of layer 0 at full width, the card against the
+    CPU: float32 on each, held to a float64 evaluation on the CPU."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.models import hymba as hymba_lib
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = cfg_full.with_(num_layers=1)
+    params = _live_cpu_weights(torch, cfg)
+    b, s = HYMBA_LAYER["batch"], HYMBA_LAYER["seq"]
+    tokens = torch.from_numpy(make_bigram_lm(b, s, LM_DATA_VOCAB,
+                                             seed=5)["tokens"]).long()
+    lp, ad = params.layer(0), layer_slice(params.lora, 0)
+    x = params.embed[tokens]
+    res = {}
+    for side, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("float64", "cpu", torch.float64),
+                             ("card", "cuda", torch.float32)):
+        def put(t):
+            return t.to(dev, dtype if t.is_floating_point() else None)
+
+        lpd = {g: {k: put(v) for k, v in grp.items()} for g, grp in lp.items()}
+        adp = {t: {k: put(v) for k, v in a.items()} for t, a in ad.items()}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            y, _ = hymba_lib.hybrid_layer(
+                put(x), lpd, adp, cfg,
+                positions=torch.arange(s, device=dev)[None, :])
+            torch.cuda.synchronize()
+            res[side] = dict(y=y.cpu(), secs=time.perf_counter() - t0)
+    truth = res["float64"]["y"]
+    scale = float(truth.abs().max())
+    err = {side: float((res[side]["y"].double() - truth).abs().max()) / scale
+           for side in ("card", "cpu")}
+    between = float((res["card"]["y"] - res["cpu"]["y"]).abs().max()) / scale
+    ok = (math.isfinite(err["card"]) and err["card"] <= HYMBA_LAYER_REL
+          and bool(res["card"]["y"].isfinite().all()))
+    log(f"  (a) hybrid_layer of layer 0, {b} x {s} tokens ({s // 128} SSD "
+        f"chunks), {cfg.num_heads} attention heads ({cfg.num_kv_heads} KV) "
+        f"beside {cfg.ssm_heads} SSD heads, live adapters on "
+        f"{cfg.lora.targets}: card {res['card']['secs'] * 1e3:.1f} ms, cpu "
+        f"{res['cpu']['secs'] * 1e3:.0f} ms, cpu float64 "
+        f"{res['float64']['secs'] * 1e3:.0f} ms; max |card - float64| "
+        f"{err['card']:.3e} of max|float64| ({scale:.4f}) (limit "
+        f"{HYMBA_LAYER_REL:.0e}); cpu float32 {err['cpu']:.3e} and card "
+        f"against cpu {between:.3e} (not held) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) hybrid_layer: the card {err['card']} from "
+                             f"float64, over {HYMBA_LAYER_REL}")
+
+
+def hymba_window_on_card(torch, cfg_full) -> None:
+    """(a) the window and the ring on the card at ``HYMBA_WINDOW``'s depth:
+    every position of a teacher-forced decode through a ring that wraps,
+    against ``forward``; a control without the window must miss."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.models import model as model_lib
+
+    cfg = cfg_full.with_(num_layers=HYMBA_WINDOW["layers"])
+    rows, seq = HYMBA_WINDOW["rows"], HYMBA_WINDOW["seq"]
+    w = cfg.sliding_window
+    params = _live_cpu_weights(torch, cfg).to_device("cuda")
+    tokens = torch.from_numpy(make_bigram_lm(rows, seq, LM_DATA_VOCAB,
+                                             seed=6)["tokens"]).to("cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = model_lib.forward(params, {"tokens": tokens}, cfg,
+                                      remat=False)
+        nowin, _ = model_lib.forward(params, {"tokens": tokens},
+                                     cfg.with_(sliding_window=None),
+                                     remat=False)
+    cache = model_lib.init_cache(cfg, rows, seq, torch.float32,
+                                 device="cuda")
+    slots = cache["kv"]["k"].shape[2]
+    err = torch.zeros(seq, device="cuda")
+    ctl = torch.zeros(seq, device="cuda")
+    for t in range(seq):
+        lg, cache = model_lib.decode_step(params, cache, tokens[:, t:t + 1],
+                                          t, cfg)
+        err[t] = (lg - logits[:, t]).abs().max()
+        ctl[t] = (lg - nowin[:, t]).abs().max()
+    torch.cuda.synchronize()
+    scale = float(logits.abs().max())
+    finite = bool(logits.isfinite().all()) and bool(err.isfinite().all())
+    inside, past = float(err[:w].max()) / scale, float(err[w:].max()) / scale
+    ctl_in, ctl_past = (float(ctl[:w].max()) / scale,
+                        float(ctl[w:].max()) / scale)
+    ring = cache["kv"]["pos"][0, 0]
+    wrapped = int(ring.min()) == seq - slots and int(ring.max()) == seq - 1
+    ok = (finite and max(inside, past) <= HYMBA_DECODE_REL and wrapped
+          and ctl_past > HYMBA_DECODE_REL)
+    log(f"  (a) the window on the card, {cfg.num_layers} layers: {rows} rows "
+        f"of {seq} tokens ({seq // 128} SSD chunks) through forward and "
+        f"teacher-forced through decode_step (ring of {slots} slots for a "
+        f"{w}-token window, holding positions {int(ring.min())}..."
+        f"{int(ring.max())} at the end: wrapped {wrapped}): max |decode - "
+        f"forward| / max|logits| ({scale:.3f}) {inside:.2e} up to position "
+        f"{w}, {past:.2e} past it (<= {HYMBA_DECODE_REL:.0e}); control, "
+        f"forward without the window: {ctl_in:.2e} up to {w}, {ctl_past:.2e} "
+        f"past it (must exceed the limit); "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) window: decode {inside}, {past}, control "
+                             f"{ctl_past}, wrapped {wrapped}, finite "
+                             f"{finite}")
+
+
+def run_hymba_phase(torch, np) -> dict:
+    """Phase 17 on Hymba-1.5B: (a) card against CPU (one layer, an LM step
+    at 2 layers) and the window on the card, (b) fine-tuning and its
+    aggregation and (c) decode at full depth on one set of weights, (d)
+    LM training at 4 layers; each part's time and the peak memory.
+    Returns the lora kernels' launches of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import hymba as hymba_lib
+    from repro_torch.models import mamba2 as ssm_lib
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(HYMBA_ARCH)
+    example = _lm_example()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hymba_layer_against_cpu(torch, cfg)
+    lm_step_against_cpu(torch, example, cfg, HYMBA_STEP)
+    # the card's step was the last to run: its launches
+    launches = {name: ops.LAUNCHES[name] for name in (
+        "lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    hymba_window_on_card(torch, cfg)
+    launches["lora_matmul"] += ops.LAUNCHES["lora_matmul"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} at full width and depth: {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} attention heads "
+        f"({cfg.num_kv_heads} KV) of {cfg.resolved_head_dim} with a "
+        f"{cfg.sliding_window}-token window beside {cfg.ssm_heads} SSD heads "
+        f"of {cfg.ssm_head_dim} (d_inner {cfg.d_inner}, state "
+        f"{cfg.ssm_state}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters float32 from seed 0 on "
+        f"the card in {time.perf_counter() - t1:.1f} s")
+    tuned, cohort = family_finetune(
+        torch, np, cfg, params, HYMBA_TUNE,
+        {"attention": (hymba_lib, "attention"),
+         "ssd": (ssm_lib, "ssd_chunked")})
+    for name, n in tuned.items():
+        launches[name] += n
+    family_aggregate(torch, np, cfg, cohort, HYMBA_ETA)
+    del cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for name, n in family_decode(torch, np, cfg, params, HYMBA_DECODE,
+                                 HYMBA_DECODE_REL).items():
+        launches[name] += n
+    t3 = time.perf_counter()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in family_lm_loop(torch, np, example, cfg, HYMBA_LM).items():
+        launches[name] += n
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase 17 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
         f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
         f"{device_line()}")
     return launches
@@ -6569,15 +6894,17 @@ def main() -> int:
                                                    paged_mod, gen),
             **check_lora_matmul(torch, ops, lora_mod, gen),
             "recon_agg": check_recon_agg(torch, ops, recon_mod, gen)}
-    log("[4] engine: full-width gemma-2b")
+    log(f"[4] engine: full-width gemma-2b at {SERVE_LAYERS} layers")
     ctx = run_engine(torch, np)
-    log("[5] speculative decode: full-width gemma-2b, spec_k 4")
+    log(f"[5] speculative decode: full-width gemma-2b at {SERVE_LAYERS} "
+        f"layers, spec_k 4")
     spec_launches = run_spec(torch, ctx)
     # each kernel's launches on the path that exercises it: phase 4 for
     # plain serving, phase 5 for the verify step, phase 6 for training
     launches = dict(ctx["launches"], paged_verify_attention=spec_launches[
         "paged_verify_attention"])
-    log("[14] the rest of single-device serving: full-width gemma-2b (the "
+    log(f"[14] the rest of single-device serving: full-width gemma-2b at "
+        f"{SERVE_LAYERS} layers (the "
         "dense ring cache, checkpoint-backed adapters, bf16, the serving "
         "example)")
     t0 = time.perf_counter()
@@ -6585,7 +6912,7 @@ def main() -> int:
     for name, n in run_serving_rest(torch, np, ctx).items():
         launches[name] += n
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
-    del ctx                           # Gemma-2B's weights: 10 GB
+    del ctx                           # phase 4's Gemma-2B weights
     gc.collect()                      # the engines hold reference cycles
     torch.cuda.empty_cache()
     log("[6] client training: full-width roberta-large, 4 clients")
@@ -6683,6 +7010,16 @@ def main() -> int:
     for name, n in run_mamba_phase(torch, np).items():
         launches[name] += n
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[17] the Hymba hybrid family: full-width hymba-1.5b")
+    t0 = time.perf_counter()
+    # a tenth counted path for the lora kernels: Hymba's LM step against the
+    # CPU, its windowed decode, its fine-tuning cohort, its greedy decode and
+    # the LM example's steps, through all six targets
+    for name, n in run_hymba_phase(torch, np).items():
+        launches[name] += n
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

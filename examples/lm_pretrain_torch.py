@@ -9,13 +9,14 @@ with a cosine schedule over every tensor, and the checkpoint store.
   PYTHONPATH=src python examples/lm_pretrain_torch.py --device cpu --steps 20
 
 It runs on the CUDA card unless ``--device cpu`` is given, and takes the
-reduced variant of ``--arch`` (a dense, mixture-of-experts or state-space
-decoder: ``gemma-2b``, ``minitron-4b``, ``olmoe-1b-7b``,
-``llama4-maverick-400b-a17b``, ``mamba2-2.7b``), as
+reduced variant of ``--arch`` (a dense, mixture-of-experts, state-space
+or hybrid decoder: ``gemma-2b``, ``minitron-4b``, ``olmoe-1b-7b``,
+``llama4-maverick-400b-a17b``, ``mamba2-2.7b``, ``hymba-1.5b``), as
 ``examples/lm_pretrain.py`` does; at full width, call ``train`` with
 ``get_config(arch)``'s weights. A MoE decoder's loss carries its
 load-balance term; Mamba2 has no attention, so ``q_chunk`` does not reach
-it.
+it; Hymba's sequence length must be a multiple of its SSD chunk,
+``min(128, seq)``.
 ``main(argv)`` takes the arguments as a list and returns the losses.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Config system for the PyTorch port: the dense, mixture-of-experts and
-state-space fields of the reference's ``repro.configs.base`` (a copy, so
-the port imports nothing of ``repro``).
+"""Config system for the PyTorch port: the dense, mixture-of-experts,
+state-space and hybrid fields of the reference's ``repro.configs.base`` (a
+copy, so the port imports nothing of ``repro``).
 
 Each architecture file defines ``CONFIG`` (the published shape, cited)
 and ``reduced()`` (a tiny same-family variant for CPU tests).
@@ -25,7 +25,9 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str  # "dense", "moe", "ssm" (decoders) or "encoder"
+    # "dense", "moe", "ssm", "hybrid" (decoders) or "encoder"; "hybrid" is
+    # Hymba's: attention and SSD heads in parallel in every layer
+    arch_type: str
     num_layers: int
     d_model: int
     num_heads: int
@@ -76,20 +78,22 @@ class ModelConfig:
     def param_count(self) -> int:
         """Analytic parameter count of the base model (no LoRA); MoE layers
         count every expert and the router, an SSM layer its ``in_proj``
-        (x -> [z, x, B, C, dt]) and ``out_proj`` and no attention."""
+        (x -> [z, x, B, C, dt]) and ``out_proj`` and no attention, a hybrid
+        layer both its attention and those two projections."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab_size * d
         if self.num_classes:
             head = d * self.num_classes
         else:
             head = 0 if self.tie_embeddings else self.vocab_size * d
-        if self.arch_type == "ssm":
+        attn = 0
+        if self.arch_type != "ssm":
+            attn += (2 * d * self.num_heads * hd
+                     + 2 * d * self.num_kv_heads * hd)
+        if self.arch_type in ("ssm", "hybrid"):
             di = self.d_inner
             proj_out = 2 * di + 2 * self.ssm_state + self.ssm_heads
-            attn = d * proj_out + di * d
-        else:
-            attn = (2 * d * self.num_heads * hd
-                    + 2 * d * self.num_kv_heads * hd)
+            attn += d * proj_out + di * d
         if self.num_experts:
             width = self.moe_d_ff or self.d_ff
             ffn = self.num_experts * 3 * d * width + d * self.num_experts
@@ -115,6 +119,7 @@ _ALIASES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

@@ -1,6 +1,6 @@
 """Unified model API (port of ``repro/models/model.py``: the dense and
-mixture-of-experts decoders, the Mamba2 state-space decoder and the
-encoder classifier).
+mixture-of-experts decoders, the Mamba2 state-space decoder, the Hymba
+hybrid decoder and the encoder classifier).
 
     init_params(cfg, seed, dtype, device)              -> Transformer
     forward(params, batch, cfg, remat=, q_chunk=)      -> (logits, aux)
@@ -17,8 +17,9 @@ pretraining (``fed/simulation.py::pretrain_backbone``) and LM training
 the reference's (per-layer recomputation on, chunks of 1024 queries); the
 federated trainers pass ``remat=False`` as the reference's do. ``aux`` is
 the MoE load-balance loss summed over the layers (a float32 zero for the
-dense and state-space families); the LM loss adds ``MOE_AUX_WEIGHT`` times
-it, the classifier's does not, as in the reference.
+dense, state-space and hybrid families); the LM loss adds
+``MOE_AUX_WEIGHT`` times it, the classifier's does not, as in the
+reference.
 
 Mamba2 (``arch_type="ssm"``) is a stack of ``x + mixer(norm(x))`` layers
 (``models/mamba2.py``) over a tied embedding, with zero-init RMS norms and
@@ -26,8 +27,12 @@ no attention; its cache is the conv window and the SSD state
 (``mamba2.init_ssm_cache``), updated in place by ``decode_step``. The
 conv window is kept in the cache's dtype (the reference's scan instead
 returns it in the model's dtype after the first step); the state is
-float32. The other ``arch_type``s (hybrid, audio, vlm) raise
-``NotImplementedError``.
+float32.
+
+Hymba (``arch_type="hybrid"``, ``models/hymba.py``) runs attention and the
+Mamba2 mixer in parallel on each layer's normed input, with a windowed
+ring cache beside the SSD state in decode. The other ``arch_type``s
+(audio, vlm) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.transformer import norm
@@ -104,7 +110,7 @@ def _mamba_decode(params: tf_lib.Transformer, cache: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "encoder"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "encoder"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported yet")
 
@@ -120,6 +126,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     _ported(cfg)
     if cfg.arch_type == "ssm":
         return _mamba_init(cfg, seed, dtype, device)
+    if cfg.arch_type == "hybrid":
+        return hymba_lib.init_params(cfg, seed, dtype, device)
     return tf_lib.init_params(cfg, seed, dtype, device)
 
 
@@ -129,6 +137,9 @@ def forward(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],
     _ported(cfg)
     if cfg.arch_type == "ssm":
         return _mamba_forward(params, batch["tokens"], cfg, remat=remat)
+    if cfg.arch_type == "hybrid":
+        return hymba_lib.forward(params, batch["tokens"], cfg, remat=remat,
+                                 q_chunk=q_chunk)
     return tf_lib.forward(params, batch["tokens"], cfg, remat=remat,
                           q_chunk=q_chunk,
                           causal=cfg.arch_type != "encoder")
@@ -169,6 +180,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     if cfg.arch_type == "ssm":
         return ssm_lib.init_ssm_cache(cfg, cfg.num_layers, batch, dtype, dev)
+    if cfg.arch_type == "hybrid":
+        return hymba_lib.init_cache(cfg, batch, max_seq, dtype, dev)
     return tf_lib.init_cache(cfg, batch, max_seq, dtype, dev)
 
 
@@ -176,4 +189,6 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
     _decoder_only(cfg)
     if cfg.arch_type == "ssm":
         return _mamba_decode(params, cache, token, pos, cfg)
+    if cfg.arch_type == "hybrid":
+        return hymba_lib.decode_step(params, cache, token, pos, cfg)
     return tf_lib.decode_step(params, cache, token, pos, cfg)

@@ -4,8 +4,9 @@ FFN's router and experts when ``num_experts`` is set, ``models/moe.py``),
 and the RoBERTa-style encoder classifier (``causal=False``, CLS pooling, a
 ``cls_head``). The module class also holds the attention-free Mamba2 stack
 (``layers`` = {"ln1", "ssm"}, ``models/mamba2.py``), whose forward and
-decode live in ``models/model.py``: ``Transformer`` takes its layer groups
-from the tree it is given.
+decode live in ``models/model.py``, and the Hymba hybrid (``layers`` =
+{"ln1", "attn", "ssm", "ln2", "mlp"}, ``models/hymba.py``):
+``Transformer`` takes its layer groups from the tree it is given.
 
 The model is an ``nn.Module`` whose parameters keep the reference's
 stacked layout: every per-layer weight is one ``(L, ...)`` tensor and
@@ -69,11 +70,13 @@ class ParamGroup(nn.Module):
 class Transformer(nn.Module):
     """Decoder or encoder: ``embed`` (V, d), stacked ``layers`` groups
     (``ln1``/``attn``/``ln2``/``mlp`` for the transformer families,
-    ``ln1``/``ssm`` for Mamba2), ``final_norm``, optional ``lm_head``
+    ``ln1``/``ssm`` for Mamba2, both sets for Hymba), ``final_norm``,
+    optional ``lm_head``
     (d, V) (tied to ``embed`` otherwise), and for classifiers ``cls`` =
     {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
 
     # the transformer families' groups, in the order the module keeps them
+    # (any other group of the tree, Mamba2's and Hymba's ssm, follows)
     GROUPS = ("ln1", "attn", "ln2", "mlp")
 
     def __init__(self, cfg: ModelConfig, tree: Dict, lora: LoraTree):
@@ -190,6 +193,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     since the generators differ."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    tree, lora = init_tree(gen, cfg, dtype)
+    return Transformer(cfg, tree, lora)
+
+
+def init_tree(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
+              ) -> Tuple[Dict, LoraTree]:
+    """``init_params``' draws from ``gen``, on its device: (the weight
+    tree, the adapters), for a caller that adds groups of its own (Hymba's
+    ``ssm``) from the same generator."""
+    dev = gen.device
     L, d, hd, ff = (cfg.num_layers, cfg.d_model, cfg.resolved_head_dim,
                     cfg.d_ff)
 
@@ -235,7 +248,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
                                        device=dev)
     elif not cfg.tie_embeddings:
         tree["lm_head"] = dense(d, cfg.vocab_size)
-    return Transformer(cfg, tree, lora)
+    return tree, lora
 
 
 # ---------------------------------------------------------------------------

@@ -220,14 +220,50 @@ def test_init_params_shapes_and_scales(arch):
 
 
 def test_non_dense_families_raise():
-    """The families not ported yet (hybrid, audio, vlm) raise; ``ssm`` is
-    taken (``tests/test_torch_mamba2.py``)."""
-    for arch_type in ("hybrid", "audio", "vlm"):
+    """The families not ported yet (audio, vlm) raise; ``ssm`` and
+    ``hybrid`` are taken (``tests/test_torch_mamba2.py``,
+    ``tests/test_torch_hymba.py``): a hybrid variant of gemma-reduced gets
+    both attention and an ``ssm`` group, a nested cache and a decode
+    step."""
+    for arch_type in ("audio", "vlm"):
         cfg = get_reduced("gemma-2b").with_(arch_type=arch_type)
         with pytest.raises(NotImplementedError):
             t_model.init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError):
             t_model.init_cache(cfg, 1, 4, device="cpu")
+    cfg = get_reduced("gemma-2b").with_(arch_type="hybrid", ssm_state=16,
+                                        ssm_head_dim=32, sliding_window=4)
+    params = t_model.init_params(cfg, device="cpu")
+    assert params.groups == ("ln1", "attn", "ln2", "mlp", "ssm")
+    cache = t_model.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert sorted(cache) == ["kv", "ssm"] and cache["kv"]["k"].shape[2] == 4
+    logits, _ = t_model.decode_step(params, cache, torch.zeros(
+        (1, 1), dtype=torch.long), 0, cfg)
+    assert logits.shape == (1, cfg.vocab_size)
+
+
+PORT_CONFIGS = ("gemma-2b", "minitron-4b", "roberta-large", "olmoe-1b-7b",
+                "llama4-maverick-400b-a17b", "mamba2-2.7b", "hymba-1.5b")
+
+
+@pytest.mark.parametrize("name", PORT_CONFIGS)
+def test_param_count_matches_reference(name):
+    """The port's analytic ``param_count`` and ``active_param_count``
+    equal the reference's for every config the port has, full and
+    reduced, and for a hybrid variant of each, whose layers count both
+    attention and the SSM's ``in_proj`` and ``out_proj`` (Gemma-2B's:
+    2,962,620,416, where a count without the SSM gives 2,506,096,640)."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+    hybrid = dict(arch_type="hybrid", ssm_state=16, ssm_head_dim=64)
+    for jc, tc in ((j_get_config(name), get_config(name)),
+                   (j_get_reduced(name), get_reduced(name))):
+        for j, t in ((jc, tc), (jc.with_(**hybrid), tc.with_(**hybrid))):
+            assert t.param_count() == j.param_count(), t.name
+            assert t.active_param_count() == j.active_param_count(), t.name
+    if name == "gemma-2b":
+        assert get_config(name).with_(**hybrid).param_count() \
+            == 2_962_620_416
 
 
 def test_interop_carries_moe_leaves_one_to_one():
