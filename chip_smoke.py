@@ -33,8 +33,8 @@ Phases, each of which raises on failure:
    projections (2048 -> 2048, timed with its bound), at M = 1 on
    Gemma-2B's widths, at Mamba2-2.7B's ssm_in (2560 -> 10576) and
    ssm_out (5120 -> 2560) and at Hymba-1.5B's ssm_in (1600 -> 6482, element
-   loads) at M 1024 and M 8 (forward, dx and dA/dB timed with their
-   bounds), each
+   loads) at M 1024 and M 8, and at Whisper-small's q and v (768 -> 768) at
+   M 1792 and M 8 (forward, dx and dA/dB timed with their bounds), each
    at the other split count and with an operand off 16-byte alignment,
    with each plan and the kernels' registers, the same bits on
    a second call, and cuBLAS's base products timed beside them; its
@@ -270,7 +270,31 @@ Phases, each of which raises on failure:
    the LM example's ``train`` at 4 layers, every parameter, 30 steps of 16
    x 64: finite losses, the last 5 below the first, 48/24/24 launches a
    step, peak memory;
-18. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+18. the Whisper encoder-decoder family on full-width Whisper-small (12
+   encoder and 12 decoder layers, d_model 768, 12 heads of 64, d_ff 3072,
+   GELU, biases, vocab 51865 tied to the head, 1500 frames a clip from a
+   numpy seed in place of the conv front end; LoRA on the decoder's q and
+   v; run after phase 17, with its weights freed): (a) at full width, one
+   encoder layer over a 1500-frame clip and ``dec_layer`` of layer 0 on 2
+   x 448 tokens with its cross K/V from that output, on the card against
+   their float64 evaluation on the CPU (``WHISPER_LAYER_REL``), then one LM
+   ``train`` step at 2 + 2 layers (phase 11 (a)'s limits, the three key
+   biases held to rounding noise, 8/4/4 launches); (b)
+   ``make_cohort_train`` at full depth, backbone frozen, 4 clients (ranks
+   2/4/6/8 on q and v) x 4 steps of 4 clips and 448 decoder tokens:
+   finite losses, factors moved, masked directions unchanged, 24 of each
+   lora kernel a step, step p50, tok/s, 2 profiled steps with the
+   encoder's device time apart; then one factored ``AggregationEngine``
+   call on the 4 updates (one shape group, no kernel launched), layers 0
+   and 11 held to float64 Eq. 2-3; (c) ``prefill_cache`` on 8 clips, 8
+   prompts of 64 tokens teacher-forced through ``decode_step`` against
+   ``forward`` (``WHISPER_DECODE_REL``), 16 greedy steps twice for the
+   same bits, 24 ``lora_matmul`` a step, then the prompts through the
+   default bfloat16 cache within ``bf16_cache_logit_rel`` of the float32
+   cache's logits; (d) the LM example's ``train`` at full depth, every
+   parameter, zero frames, 30 steps of 16 x 64: finite losses, the last 5
+   below the first, 48/24/24 launches a step, peak memory;
+19. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -338,6 +362,22 @@ def bf16_logit_rel(num_layers: int) -> float:
     logits may move by it."""
     n = 38 * num_layers + 4
     return BF16_SIGMAS * math.sqrt(2 * n) * 2.0 ** -8 / math.sqrt(3)
+
+
+# Whisper's decode with the default bfloat16 cache against the float32
+# cache, float32 weights: the same derivation, one side rounding. A decoder
+# layer rounds 8 values: the self-attention K and V written into the cache,
+# its probabilities (cast to the cache's dtype for the product with V) and
+# its output (that product, in bf16), and the same four of cross-attention,
+# whose K and V are rounded once by prefill_cache; the casts up to the
+# weights' float32 are exact, and nothing outside the layers rounds. So N =
+# 8 L, and against float32 each logit moves by at most BF16_SIGMAS
+# sqrt(N) u / sqrt(3) of its row's rms.
+def bf16_cache_logit_rel(num_layers: int) -> float:
+    """|bf16-cache logit - float32-cache logit| <= this * rms(float32
+    logits of the row), per element (the derivation above)."""
+    return (BF16_SIGMAS * math.sqrt(8 * num_layers) * 2.0 ** -8
+            / math.sqrt(3))
 
 
 # Phase 14 (b)'s registry counts: 8 requests of 32 new tokens, round-robin
@@ -945,11 +985,13 @@ def verify_sq1_equals_decode(torch, ops, q, kp, vp, tables, lens1, ps):
 # Mamba2-2.7B's ssm_in (2560 -> 10576) and ssm_out (5120 -> 2560) at its
 # fine-tuning step (4 x 256 tokens) and its decode step (M 8), and
 # Hymba-1.5B's ssm_in (1600 -> 6482, N not a multiple of 4: the forward's
-# and dx's kernels with element loads) at the same two.
+# and dx's kernels with element loads) at the same two, and Whisper-small's
+# q and v (768 -> 768) at its fine-tuning step (4 clips x 448 decoder
+# tokens) and its decode step (M 8).
 # The first is the kernels line's; every shape whose M is in TIMED_M is
 # timed (dA/dB too, past the first), and the forward, dx and dA/dB at
 # every M in DECODE_M.
-TIMED_M = (512, 1024, 2048)
+TIMED_M = (512, 1024, 1792, 2048)
 DECODE_M = (1, 8)
 LORA_SHAPES = [
     ("training: 16 x 32 tokens through a q or v projection of "
@@ -980,6 +1022,9 @@ LORA_SHAPES = [
      "loads: N 6482)", 1024, 1600, 6482, 8),
     ("decode: 8 rows through Hymba-1.5B's ssm_in (element loads: N 6482)",
      8, 1600, 6482, 8),
+    ("fine-tuning: 4 x 448 tokens through Whisper-small's q or v", 1792,
+     768, 768, 8),
+    ("decode: 8 rows through Whisper-small's q or v", 8, 768, 768, 8),
 ]
 
 
@@ -4157,7 +4202,9 @@ def lm_step_against_cpu(torch, example, cfg_full, step=LM_STEP) -> None:
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    cfg = cfg_full.with_(num_layers=step["layers"])
+    cfg = cfg_full.with_(num_layers=step["layers"],
+                         encoder_layers=step.get("encoder_layers",
+                                                 cfg_full.encoder_layers))
     cpu = _live_cpu_weights(torch, cfg)
     data = make_bigram_lm(64, step["seq"], LM_DATA_VOCAB, seed=0)
     grad_step = simulation.pretrain_loss_and_grads
@@ -4189,13 +4236,26 @@ def lm_step_against_cpu(torch, example, cfg_full, step=LM_STEP) -> None:
         del params, trained
     dl = abs(res["card"]["loss"] - res["cpu"]["loss"])
     worst = dict(g=(0.0, ""), c=(0.0, ""), all=(0.0, ""))
-    skipped, wrong = {}, 0
+    skipped, wrong, noise = {}, 0, []
     t2 = time.perf_counter()
     # the comparison runs on the card, leaf by leaf, with the CPU side's
     # tensors copied there: the same elementwise float32 and float64
     # arithmetic, without a CPU pass over every element
     for path, g_cpu in res["cpu"]["grads"].items():
         name = "/".join(path)
+        if path[-1] == NOISE_LEAF[-1]:
+            # a key bias (Whisper's encoder, self- and cross-attention):
+            # rounding noise on both sides, held as phase 9 (a) holds bk
+            for side in ("cpu", "card"):
+                g, ref = (res[side]["grads"][p] for p in (
+                    path, path[:-1] + NOISE_REF[-1:]))
+                if _max_abs(g) > NOISE_REL * _max_abs(ref):
+                    raise AssertionError(
+                        f"LM step: {side} gradient of {name} "
+                        f"{_max_abs(g):.3e} is not rounding noise against "
+                        f"bq's {_max_abs(ref):.3e}")
+            noise.append(name)
+            continue
         g_cpu = g_cpu.to("cuda")
         g_card = res["card"]["grads"][path]
         before = res["cpu"]["before"][path].to("cuda")
@@ -4249,7 +4309,9 @@ def lm_step_against_cpu(torch, example, cfg_full, step=LM_STEP) -> None:
         f"differ in sign, by leaf {skipped or 'none'}, of which moved along "
         f"the card's own gradient {wrong} (must be 0); over the other "
         f"elements max {worst['c'][0]:.2e} ({worst['c'][1]}; <= "
-        f"{TRAIN_REL:.0e}); in {time.perf_counter() - t0:.1f} s (the "
+        f"{TRAIN_REL:.0e}); key biases held to rounding noise (<= "
+        f"{NOISE_REL:.0e} of bq's, change not compared): {noise or 'none'}; "
+        f"in {time.perf_counter() - t0:.1f} s (the "
         f"comparison {compare:.1f} s) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"LM step: card and CPU disagree (loss {dl}, "
@@ -6305,11 +6367,12 @@ def mamba_ssd_against_cpu(torch, cfg_full) -> None:
 
 def family_finetune(torch, np, cfg, params, spec, ranged) -> tuple:
     """(b) ``make_cohort_train`` at full depth: ``spec``'s clients
-    (``MAMBA_TUNE``, ``HYMBA_TUNE``) at their ranks on every LoRA target,
-    its steps each, backbone frozen; then two profiled steps with the
-    device time of each ``ranged`` function apart ({range name: (module,
-    attribute)}, e.g. the SSD scan). Returns (the lora kernels' launches,
-    the trained cohort {target: {"A", "B", "mask"}})."""
+    (``MAMBA_TUNE``, ``HYMBA_TUNE``, ``WHISPER_TUNE``) at their ranks on
+    every LoRA target, its steps each, backbone frozen (an encoder-decoder's
+    rows each with a clip of frames from a numpy seed); then two profiled
+    steps with the device time of each ``ranged`` function apart ({range
+    name: (module, attribute)}, e.g. the SSD scan). Returns (the lora
+    kernels' launches, the trained cohort {target: {"A", "B", "mask"}})."""
     from repro_torch.core.lora import make_rank_mask
     from repro_torch.data import make_bigram_lm
     from repro_torch.fed import (SimConfig, client as client_mod,
@@ -6336,6 +6399,9 @@ def family_finetune(torch, np, cfg, params, spec, ranged) -> tuple:
     data = {k: torch.from_numpy(v).reshape(len(ranks), n_steps, bsz,
                                            seq).to("cuda")
             for k, v in lm.items()}
+    if cfg.arch_type == "audio":
+        data["frames"] = whisper_frames(torch, np, cfg,
+                                        (len(ranks), n_steps, bsz), seed=7)
     # one unmeasured step (cuBLAS, the kernels' first calls)
     make_local_train(cfg, adamw(lr), device="cuda")(
         frozen, tree_map(lambda t: t[0], trainable),
@@ -6377,10 +6443,12 @@ def family_finetune(torch, np, cfg, params, spec, ranged) -> tuple:
     ok = (finite and aux_ok and all(moved) and not bad
           and len(steps) == len(ranks) * n_steps)
     first = [t for t in cfg.lora.targets if t in ("q", "k", "v", "ssm_in")]
+    row = (f"a clip of {cfg.encoder_seq} frames a row" if "frames" in data
+           else f"{seq // min(ssm_lib.SSD_CHUNK, seq)} SSD chunks a row")
     log(f"  (b) HLoRA fine-tuning, {L} layers ({cfg.param_count() / 1e9:.3f}"
         f" B parameters), frozen; {len(ranks)} clients at ranks {ranks} on "
         f"{cfg.lora.targets}, {n_steps} steps each of {bsz} x {seq} tokens "
-        f"({seq // min(ssm_lib.SSD_CHUNK, seq)} SSD chunks a row), AdamW lr "
+        f"({row}), AdamW lr "
         f"{lr}: {len(steps)} steps in {end - t0:.3f} s, "
         f"{tokens / (end - t0):.1f} tok/s; step p50 "
         f"{np.median(walls) * 1e3:.3f} ms (min {min(walls) * 1e3:.3f}, max "
@@ -6480,33 +6548,62 @@ def family_aggregate(torch, np, cfg, cohort, eta) -> None:
         del dw, trunc, upd, p64
 
 
-def family_decode(torch, np, cfg, params, spec, rel) -> dict:
+def whisper_frames(torch, np, cfg, lead, seed):
+    """Frame embeddings (*lead, encoder_seq, d_model) on the card, standard
+    normal from a numpy seed: the stand-in for the conv front end's
+    output, as in the reference."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (*lead, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to("cuda")
+
+
+def family_decode(torch, np, cfg, params, spec, rel, cache_rel=None
+                  ) -> dict:
     """(c) decode at full depth through ``model.init_cache`` (room for the
     prompt and the greedy steps) and ``decode_step``: ``spec``'s prompts
-    (``MAMBA_DECODE``, ``HYMBA_DECODE``) teacher-forced against
-    ``forward`` within ``rel`` of the logits' largest magnitude, then its
-    greedy steps twice. Returns the lora_matmul launches of the greedy
-    steps."""
+    (``MAMBA_DECODE``, ``HYMBA_DECODE``, ``WHISPER_DECODE``) teacher-forced
+    against ``forward`` within ``rel`` of the logits' largest magnitude,
+    then its greedy steps twice. An encoder-decoder takes a clip of frames
+    a row (a numpy seed) and its cache from ``whisper.prefill_cache``; with
+    ``cache_rel(L)``, one more teacher-forced pass through the default
+    (bfloat16) cache is held to the float32 cache's logits within that
+    share of each row's rms. Returns the lora_matmul launches of the
+    greedy steps."""
     from repro_torch.data import make_bigram_lm
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
+    from repro_torch.models import whisper as whisper_lib
     from repro_torch.optim import tree_map
     from repro_torch.optim.optimizers import tree_leaves
 
     rows, plen = spec["rows"], spec["prompt"]
     prompts = torch.from_numpy(make_bigram_lm(
         rows, plen, LM_DATA_VOCAB, seed=4)["tokens"]).to("cuda")
+    batch = {"tokens": prompts}
+    audio = cfg.arch_type == "audio"
+    if audio:
+        batch["frames"] = whisper_frames(torch, np, cfg, (rows,), seed=8)
+
+    def new_cache(**dtype):
+        if audio:
+            return whisper_lib.prefill_cache(params, batch["frames"], cfg,
+                                             rows, plen + spec["greedy"],
+                                             **dtype)
+        return model_lib.init_cache(cfg, rows, plen + spec["greedy"],
+                                    device="cuda", **dtype)
+
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, _ = model_lib.forward(params, {"tokens": prompts}, cfg,
-                                      remat=False)
-    cache = model_lib.init_cache(cfg, rows, plen + spec["greedy"],
-                                 torch.float32, device="cuda")
+        logits, _ = model_lib.forward(params, batch, cfg, remat=False)
+    cache = new_cache(dtype=torch.float32)
     err = torch.zeros((), device="cuda")
+    kept = []
     for t in range(plen):
         lg, cache = model_lib.decode_step(params, cache, prompts[:, t:t + 1],
                                           t, cfg)
         err = torch.maximum(err, (lg - logits[:, t]).abs().max())
+        if cache_rel is not None:
+            kept.append(lg)
     finite = bool(lg.isfinite().all()) and bool(logits.isfinite().all())
     scale = float(logits.abs().max())
     err = float(err)
@@ -6563,6 +6660,32 @@ def family_decode(torch, np, cfg, params, spec, rel) -> dict:
     if not ok:
         raise AssertionError(f"(c) greedy decode: same bits {same}, finite "
                              f"{finite}, launches differ at steps {bad[:5]}")
+    if cache_rel is not None:
+        del cache, first, second
+        t1 = time.perf_counter()
+        cache = new_cache()                  # the default dtype
+        dtype = tree_leaves(cache)[0].dtype
+        worst = torch.zeros((), dtype=torch.float64, device="cuda")
+        for t in range(plen):
+            lg, cache = model_lib.decode_step(params, cache,
+                                              prompts[:, t:t + 1], t, cfg)
+            want = kept[t].double()
+            rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+            worst = torch.maximum(worst, ((lg.double() - want).abs()
+                                          / rms).max())
+        worst = float(worst)
+        bound = cache_rel(cfg.num_layers)
+        ok = (0 < worst <= bound and dtype == torch.bfloat16
+              and lg.dtype == torch.float32)
+        log(f"  (c) the same prompts teacher-forced through the default "
+            f"{dtype} cache (float32 weights; each attention output cast up "
+            f"to its projection's dtype): max |logit - float32 cache's| / "
+            f"rms of its row {worst:.3e} over every position (<= {bound:.4f}"
+            f", bf16_cache_logit_rel({cfg.num_layers})); "
+            f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(c) bf16 cache: {worst} against {bound}, "
+                                 f"cache {dtype}, logits {lg.dtype}")
     return {"lora_matmul": sum(n["lora_matmul"] for n in launches)}
 
 
@@ -6857,6 +6980,200 @@ def run_hymba_phase(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Whisper encoder-decoder on full-width Whisper-small
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-small"
+# (a) the card against the CPU at full width, from one set of weights (seed
+# 0 on the CPU, live adapters on q and v, copied across), on the same
+# inputs (a clip of 1500 frames with their positions, 2 x 448 embedded
+# tokens, made once on the CPU): one encoder layer and enc_norm
+# (``encode_layers``; queries in two chunks of 750, the largest divisor of
+# 1500 under 1024), then dec_layer of layer 0 with its cross K/V from that
+# 1500-frame output, held as phase 17 (a) holds hybrid_layer: the card
+# within WHISPER_LAYER_REL of a float64 evaluation of the same code on the
+# CPU, over the largest float64 magnitude (float64 but for attention's
+# scores, which ``attention`` forms in float32: q and k rounded by ~6e-8
+# of themselves). Each output's float32 error is a few ulps of its largest
+# entry summed over K of 768 to 3072 products, ~1e-6; 1e-5 is
+# HYMBA_LAYER_REL. The positional table is float32 on every side, as the
+# reference defines it; the card's exp and sin may each differ from the
+# CPU's by an ulp or two, and at angles up to 1499 an ulp of the frequency
+# moves an angle by up to 1499 * 2^-24 (8.9e-5 rad): the card's table is
+# held to the CPU's within WHISPER_TABLE_ATOL = 4 * 1499 * 2^-24 (3.6e-4,
+# four ulps of each angle's frequency).
+WHISPER_LAYER = dict(clips=1, rows=2, seq=448)
+WHISPER_LAYER_REL = 1e-5
+WHISPER_TABLE_ATOL = 4 * 1499 * 2.0 ** -24
+# then one LM step at 2 + 2 layers on 2 x 32 tokens with zero frames
+# (phase 11 (a)'s limits, the key biases held to rounding noise; 8/4/4
+# launches: q and v in 2 layers, the forward twice under remat)
+WHISPER_STEP = dict(layers=2, encoder_layers=2, batch=2, seq=32, q_chunk=8,
+                    lr=3e-3)
+# (b) HLoRA fine-tuning at full depth: 4 clients (ranks 2/4/6/8 on q and v),
+# 4 local steps each of 4 clips of 1500 frames and 448 decoder tokens
+# (Whisper's text context), backbone frozen; then one factored merge of the
+# 4 updates with weights eta in WHISPER_ETA (one shape group: q and v, 768
+# x 768, 24 items), layers 0 and 11 held to float64 Eq. 2-3
+WHISPER_TUNE = dict(ranks=(2, 4, 6, 8), steps=4, batch=4, seq=448,
+                    profiled=2)
+WHISPER_ETA = (1.0, 2.0, 3.0, 4.0)
+# (c) decode at full depth: prefill_cache on 8 clips, 8 prompts of 64
+# tokens teacher-forced through decode_step against forward's logits within
+# WHISPER_DECODE_REL of their largest magnitude (phase 17's 2e-4, ten times
+# inside the reference test's 2e-3: decode and forward sum the same float32
+# products in other orders, cross-attention over the same 1500 keys in
+# both), then 16 greedy steps twice for the same bits; then the prompts
+# again through the default bf16 cache, held to the float32 cache's logits
+# within bf16_cache_logit_rel(12) of each row's rms
+WHISPER_DECODE = dict(rows=8, prompt=64, greedy=16)
+WHISPER_DECODE_REL = 2e-4
+# (d) the LM example's train at full width and depth (12 + 12 layers, every
+# parameter, zero frames: 16 clips of 1500 a step through the encoder), 30
+# steps of 16 x 64 tokens
+WHISPER_LM = dict(layers=12, steps=30, batch=16, seq=64, lr=3e-3,
+                  q_chunk=64)
+
+
+def whisper_layers_against_cpu(torch, np, cfg_full) -> None:
+    """(a) one encoder layer and one ``dec_layer`` at full width, the card
+    against the CPU: float32 on each, held to a float64 evaluation on the
+    CPU."""
+    from repro_torch.data import make_bigram_lm
+    from repro_torch.models import whisper as whisper_lib
+    from repro_torch.models.common import sinusoidal_positions
+    from repro_torch.models.transformer import Transformer, layer_slice
+    from repro_torch.optim import tree_map
+
+    cfg = cfg_full.with_(num_layers=1, encoder_layers=1)
+    params = _live_cpu_weights(torch, cfg)
+    spec = WHISPER_LAYER
+    frames = whisper_frames(torch, np, cfg, (spec["clips"],), seed=5).cpu()
+    tokens = torch.from_numpy(make_bigram_lm(
+        spec["rows"], spec["seq"], LM_DATA_VOCAB, seed=5)["tokens"]).long()
+    x = (params.embed[tokens] * math.sqrt(cfg.d_model)
+         + sinusoidal_positions(torch.arange(spec["seq"])[None, :],
+                                cfg.d_model))
+    pos = torch.arange(cfg.encoder_seq)[None, :]
+    table = sinusoidal_positions(pos, cfg.d_model)
+    table_err = float((sinusoidal_positions(pos.cuda(), cfg.d_model).cpu()
+                       - table).abs().max())
+    frames = frames + table
+    res = {}
+    for side, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("float64", "cpu", torch.float64),
+                             ("card", "cuda", torch.float32)):
+        def put(t):
+            return t.to(dev, dtype if t.is_floating_point() else None)
+
+        p = Transformer.from_tree(cfg, tree_map(put, params.tree()))
+        lp = {g: {k: put(v) for k, v in grp.items()}
+              for g, grp in params.layer(0).items()}
+        ad = {t: {k: put(v) for k, v in a.items()}
+              for t, a in layer_slice(params.lora, 0).items()}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            enc = whisper_lib.encode_layers(p, put(frames), cfg)
+            kv = whisper_lib.cross_kv(enc.expand(spec["rows"], -1, -1),
+                                      lp["xattn"], cfg)
+            y = whisper_lib.dec_layer(put(x), lp, ad, kv, cfg)
+            torch.cuda.synchronize()
+            res[side] = dict(enc=enc.cpu(), y=y.cpu(),
+                             secs=time.perf_counter() - t0)
+    errs = {}
+    for name in ("enc", "y"):
+        truth = res["float64"][name]
+        scale = float(truth.abs().max())
+        errs[name] = {side: float((res[side][name].double() - truth).abs()
+                                  .max()) / scale for side in ("card", "cpu")}
+        errs[name]["scale"] = scale
+    ok = (all(math.isfinite(e["card"]) and e["card"] <= WHISPER_LAYER_REL
+              for e in errs.values())
+          and table_err <= WHISPER_TABLE_ATOL)
+    log(f"  (a) the positional table over {cfg.encoder_seq} frames, card "
+        f"against cpu (both float32): max |diff| {table_err:.3e} (<= "
+        f"{WHISPER_TABLE_ATOL:.2e})")
+    log(f"  (a) encoder layer 0 and enc_norm over {spec['clips']} clip of "
+        f"{cfg.encoder_seq} frames, then dec_layer of layer 0 on "
+        f"{spec['rows']} x {spec['seq']} tokens with its cross K/V from "
+        f"that output, live adapters on {cfg.lora.targets}: card "
+        f"{res['card']['secs'] * 1e3:.1f} ms, cpu "
+        f"{res['cpu']['secs'] * 1e3:.0f} ms, cpu float64 "
+        f"{res['float64']['secs'] * 1e3:.0f} ms; max |card - float64| of "
+        f"max|float64|: encoder {errs['enc']['card']:.3e} (scale "
+        f"{errs['enc']['scale']:.4f}), dec_layer {errs['y']['card']:.3e} "
+        f"(scale {errs['y']['scale']:.4f}) (limit {WHISPER_LAYER_REL:.0e}); "
+        f"cpu float32 {errs['enc']['cpu']:.3e}, {errs['y']['cpu']:.3e} (not "
+        f"held) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(a) whisper layers: {errs}, over "
+                             f"{WHISPER_LAYER_REL}; table {table_err}")
+
+
+def run_whisper_phase(torch, np) -> dict:
+    """Phase 18 on Whisper-small: (a) card against CPU (an encoder layer
+    and a decoder layer, an LM step at 2 + 2 layers), (b) fine-tuning and
+    its aggregation and (c) decode at full depth on one set of weights,
+    (d) LM training at full depth; each part's time and the peak memory.
+    Returns the lora kernels' launches of (a)-(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import whisper as whisper_lib
+
+    cfg = get_config(WHISPER_ARCH)
+    example = _lm_example()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whisper_layers_against_cpu(torch, np, cfg)
+    lm_step_against_cpu(torch, example, cfg, WHISPER_STEP)
+    # the card's step was the last to run: its launches
+    launches = {name: ops.LAUNCHES[name] for name in (
+        "lora_matmul", "lora_matmul_dx", "lora_matmul_grad_ab")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    elems = sum(t.numel() for t in _leaf_paths(params.tree()).values())
+    log(f"  {cfg.name} at full width and depth: {cfg.encoder_layers} "
+        f"encoder and {cfg.num_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.encoder_seq} frames "
+        f"a clip: {cfg.param_count() / 1e6:.1f} M parameters as the "
+        f"reference counts them "
+        f"({elems / 1e6:.1f} M tensors' elements, the head tied), float32 "
+        f"from seed 0 on the "
+        f"card in {time.perf_counter() - t1:.1f} s")
+    tuned, cohort = family_finetune(torch, np, cfg, params, WHISPER_TUNE,
+                                    {"encoder": (whisper_lib, "encode")})
+    for name, n in tuned.items():
+        launches[name] += n
+    family_aggregate(torch, np, cfg, cohort, WHISPER_ETA)
+    del cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for name, n in family_decode(torch, np, cfg, params, WHISPER_DECODE,
+                                 WHISPER_DECODE_REL,
+                                 cache_rel=bf16_cache_logit_rel).items():
+        launches[name] += n
+    t3 = time.perf_counter()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in family_lm_loop(torch, np, example, cfg,
+                                  WHISPER_LM).items():
+        launches[name] += n
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase 18 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s; peak memory {peak:.2f} GiB; "
+        f"{device_line()}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7020,6 +7337,16 @@ def main() -> int:
     for name, n in run_hymba_phase(torch, np).items():
         launches[name] += n
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[18] the Whisper encoder-decoder family: full-width whisper-small")
+    t0 = time.perf_counter()
+    # an eleventh counted path for the lora kernels: Whisper's LM step
+    # against the CPU, its fine-tuning cohort, its greedy decode and the LM
+    # example's steps, through q and v of the decoder
+    for name, n in run_whisper_phase(torch, np).items():
+        launches[name] += n
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

@@ -10,13 +10,15 @@ with a cosine schedule over every tensor, and the checkpoint store.
 
 It runs on the CUDA card unless ``--device cpu`` is given, and takes the
 reduced variant of ``--arch`` (a dense, mixture-of-experts, state-space
-or hybrid decoder: ``gemma-2b``, ``minitron-4b``, ``olmoe-1b-7b``,
-``llama4-maverick-400b-a17b``, ``mamba2-2.7b``, ``hymba-1.5b``), as
+or hybrid decoder, or Whisper's encoder-decoder: ``gemma-2b``,
+``minitron-4b``, ``olmoe-1b-7b``, ``llama4-maverick-400b-a17b``,
+``mamba2-2.7b``, ``hymba-1.5b``, ``whisper-small``), as
 ``examples/lm_pretrain.py`` does; at full width, call ``train`` with
 ``get_config(arch)``'s weights. A MoE decoder's loss carries its
 load-balance term; Mamba2 has no attention, so ``q_chunk`` does not reach
 it; Hymba's sequence length must be a multiple of its SSD chunk,
-``min(128, seq)``.
+``min(128, seq)``; Whisper's every batch carries zero ``frames`` (batch,
+encoder_seq, d_model), as the reference example's does.
 ``main(argv)`` takes the arguments as a list and returns the losses.
 """
 from __future__ import annotations
@@ -50,7 +52,8 @@ def train(cfg: ModelConfig, params: Transformer, data: Dict[str, np.ndarray],
     """``steps`` AdamW steps (``cosine_decay(lr, steps, warmup_steps=20)``)
     of the next-token loss over every tensor of ``params`` (the LoRA masks
     included), each on ``batch`` rows of ``data`` picked by
-    ``np.random.default_rng(rng_seed)``, on ``device`` (None = CUDA, which
+    ``np.random.default_rng(rng_seed)`` (with zero ``frames`` for an
+    encoder-decoder), on ``device`` (None = CUDA, which
     must exist). ``on_step(i, loss)`` is called after each step with the
     loss as a device tensor. Returns the trained weights and the losses.
 
@@ -73,6 +76,9 @@ def train(cfg: ModelConfig, params: Transformer, data: Dict[str, np.ndarray],
         picks = rng.integers(0, len(data["tokens"]), size=batch)
         b = {k: torch.from_numpy(data[k][picks]).to(dev)
              for k in ("tokens", "labels")}
+        if cfg.arch_type == "audio":
+            b["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      device=dev)
         loss, grads = simulation.pretrain_loss_and_grads(
             tree, b, cfg, remat=remat, q_chunk=q_chunk)
         g = tree_leaves(grads)

@@ -1,6 +1,6 @@
 """Config system for the PyTorch port: the dense, mixture-of-experts,
-state-space and hybrid fields of the reference's ``repro.configs.base`` (a
-copy, so the port imports nothing of ``repro``).
+state-space, hybrid and encoder-decoder fields of the reference's
+``repro.configs.base`` (a copy, so the port imports nothing of ``repro``).
 
 Each architecture file defines ``CONFIG`` (the published shape, cited)
 and ``reduced()`` (a tiny same-family variant for CPU tests).
@@ -25,8 +25,9 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    # "dense", "moe", "ssm", "hybrid" (decoders) or "encoder"; "hybrid" is
-    # Hymba's: attention and SSD heads in parallel in every layer
+    # "dense", "moe", "ssm", "hybrid" (decoders), "encoder" or "audio";
+    # "hybrid" is Hymba's: attention and SSD heads in parallel in every
+    # layer; "audio" is Whisper's encoder-decoder
     arch_type: str
     num_layers: int
     d_model: int
@@ -51,6 +52,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     activation: str = "silu"   # silu | geglu | gelu
     use_bias: bool = False
+    # encoder-decoder (whisper): encoder depth and its frames a clip
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
     num_classes: int = 0       # encoder-only classification (roberta)
     tie_embeddings: bool = False
     lora: LoRAConfig = field(default_factory=LoRAConfig)
@@ -79,7 +83,11 @@ class ModelConfig:
         """Analytic parameter count of the base model (no LoRA); MoE layers
         count every expert and the router, an SSM layer its ``in_proj``
         (x -> [z, x, B, C, dt]) and ``out_proj`` and no attention, a hybrid
-        layer both its attention and those two projections."""
+        layer both its attention and those two projections. An
+        encoder-decoder adds the encoder's layers (self-attention and MLP)
+        and each decoder layer's cross-attention, as the reference does;
+        like the reference, it counts an untied head unless
+        ``tie_embeddings`` is set, which Whisper's config leaves False."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab_size * d
         if self.num_classes:
@@ -100,7 +108,11 @@ class ModelConfig:
         else:
             mult = 3 if self.activation in ("silu", "geglu") else 2
             ffn = mult * d * self.d_ff
-        return emb + head + self.num_layers * (attn + ffn)
+        total = emb + head + self.num_layers * (attn + ffn)
+        if self.encoder_layers:
+            total += (self.encoder_layers * (4 * d * d + 2 * d * self.d_ff)
+                      + self.num_layers * 4 * d * d)
+        return total
 
     def active_param_count(self) -> int:
         """Parameters a token passes through (MoE: its top-k experts)."""
@@ -120,6 +132,7 @@ _ALIASES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mamba2-2.7b": "mamba2_2_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "whisper-small": "whisper_small",
 }
 
 

@@ -61,7 +61,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device=None,
                     dtype=None) -> Transformer:
     """A reference param tree (numpy leaves) -> ``Transformer``. The tree's
     ``"lora"`` entry becomes ``Transformer.lora``, its ``cls_head`` and
-    ``cls_bias`` (classifiers) ``Transformer.cls``. Under ``dtype``, a
+    ``cls_bias`` (classifiers) ``Transformer.cls``, an encoder-decoder's
+    ``encoder`` and ``enc_norm`` ``Transformer.encoder`` and
+    ``Transformer.enc_norm``. Under ``dtype``, a
     Mamba2 tree's ``A_log``, ``D`` and ``dt_bias`` stay float32, as the
     reference creates them whatever the model's dtype."""
     dev = resolve_device(device)

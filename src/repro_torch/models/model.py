@@ -1,6 +1,6 @@
 """Unified model API (port of ``repro/models/model.py``: the dense and
 mixture-of-experts decoders, the Mamba2 state-space decoder, the Hymba
-hybrid decoder and the encoder classifier).
+hybrid decoder, the Whisper encoder-decoder and the encoder classifier).
 
     init_params(cfg, seed, dtype, device)              -> Transformer
     forward(params, batch, cfg, remat=, q_chunk=)      -> (logits, aux)
@@ -9,7 +9,8 @@ hybrid decoder and the encoder classifier).
     decode_step(params, cache, token, pos, cfg)        -> (logits, cache)
 
 ``batch``: {"tokens": (B, S) int, "labels": (B,) int for a classifier,
-(B, S) int next tokens for a decoder (< 0: not scored)}. ``loss_fn`` is
+(B, S) int next tokens for a decoder (< 0: not scored), "frames": (B,
+S_enc, d) for Whisper}. ``loss_fn`` is
 differentiable in whichever tensors of ``params`` require grad: the
 adapters and head in client training, every tensor in backbone
 pretraining (``fed/simulation.py::pretrain_backbone``) and LM training
@@ -31,8 +32,14 @@ float32.
 
 Hymba (``arch_type="hybrid"``, ``models/hymba.py``) runs attention and the
 Mamba2 mixer in parallel on each layer's normed input, with a windowed
-ring cache beside the SSD state in decode. The other ``arch_type``s
-(audio, vlm) raise ``NotImplementedError``.
+ring cache beside the SSD state in decode.
+
+Whisper (``arch_type="audio"``, ``models/whisper.py``) encodes the
+batch's ``frames`` (a stub for the conv front end) and decodes with
+cross-attention over them; ``forward`` without ``frames`` raises
+``ValueError``. Its decode cache holds the cross K/V, which
+``whisper.prefill_cache`` fills from the frames (``init_cache`` gives
+zeros). ``vlm`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import mamba2 as ssm_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models import whisper as whisper_lib
 from repro_torch.models.transformer import norm
 
 MOE_AUX_WEIGHT = 0.01
@@ -110,7 +118,8 @@ def _mamba_decode(params: tf_lib.Transformer, cache: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "encoder"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio",
+                             "encoder"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported yet")
 
@@ -128,6 +137,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         return _mamba_init(cfg, seed, dtype, device)
     if cfg.arch_type == "hybrid":
         return hymba_lib.init_params(cfg, seed, dtype, device)
+    if cfg.arch_type == "audio":
+        return whisper_lib.init_params(cfg, seed, dtype, device)
     return tf_lib.init_params(cfg, seed, dtype, device)
 
 
@@ -140,6 +151,10 @@ def forward(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],
     if cfg.arch_type == "hybrid":
         return hymba_lib.forward(params, batch["tokens"], cfg, remat=remat,
                                  q_chunk=q_chunk)
+    if cfg.arch_type == "audio":
+        return whisper_lib.forward(params, batch["tokens"], cfg,
+                                   frames=batch.get("frames"), remat=remat,
+                                   q_chunk=q_chunk)
     return tf_lib.forward(params, batch["tokens"], cfg, remat=remat,
                           q_chunk=q_chunk,
                           causal=cfg.arch_type != "encoder")
@@ -182,6 +197,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         return ssm_lib.init_ssm_cache(cfg, cfg.num_layers, batch, dtype, dev)
     if cfg.arch_type == "hybrid":
         return hymba_lib.init_cache(cfg, batch, max_seq, dtype, dev)
+    if cfg.arch_type == "audio":
+        return whisper_lib.init_cache(cfg, batch, max_seq, dtype, dev)
     return tf_lib.init_cache(cfg, batch, max_seq, dtype, dev)
 
 
@@ -191,4 +208,6 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig):
         return _mamba_decode(params, cache, token, pos, cfg)
     if cfg.arch_type == "hybrid":
         return hymba_lib.decode_step(params, cache, token, pos, cfg)
+    if cfg.arch_type == "audio":
+        return whisper_lib.decode_step(params, cache, token, pos, cfg)
     return tf_lib.decode_step(params, cache, token, pos, cfg)

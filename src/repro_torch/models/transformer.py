@@ -4,8 +4,11 @@ FFN's router and experts when ``num_experts`` is set, ``models/moe.py``),
 and the RoBERTa-style encoder classifier (``causal=False``, CLS pooling, a
 ``cls_head``). The module class also holds the attention-free Mamba2 stack
 (``layers`` = {"ln1", "ssm"}, ``models/mamba2.py``), whose forward and
-decode live in ``models/model.py``, and the Hymba hybrid (``layers`` =
-{"ln1", "attn", "ssm", "ln2", "mlp"}, ``models/hymba.py``):
+decode live in ``models/model.py``, the Hymba hybrid (``layers`` =
+{"ln1", "attn", "ssm", "ln2", "mlp"}, ``models/hymba.py``) and Whisper's
+encoder-decoder (``encoder`` = {"ln1", "attn", "ln2", "mlp"} stacked over
+the encoder's layers and ``enc_norm`` beside the decoder's ``layers`` =
+{"ln1", "attn", "lnx", "xattn", "ln2", "mlp"}, ``models/whisper.py``):
 ``Transformer`` takes its layer groups from the tree it is given.
 
 The model is an ``nn.Module`` whose parameters keep the reference's
@@ -70,13 +73,15 @@ class ParamGroup(nn.Module):
 class Transformer(nn.Module):
     """Decoder or encoder: ``embed`` (V, d), stacked ``layers`` groups
     (``ln1``/``attn``/``ln2``/``mlp`` for the transformer families,
-    ``ln1``/``ssm`` for Mamba2, both sets for Hymba), ``final_norm``,
-    optional ``lm_head``
-    (d, V) (tied to ``embed`` otherwise), and for classifiers ``cls`` =
-    {``cls_head`` (d, C), ``cls_bias`` (C,)}."""
+    ``ln1``/``ssm`` for Mamba2, both sets for Hymba, ``lnx``/``xattn``
+    added for Whisper's decoder), ``final_norm``, optional ``lm_head``
+    (d, V) (tied to ``embed`` otherwise), for classifiers ``cls`` =
+    {``cls_head`` (d, C), ``cls_bias`` (C,)}, and for an encoder-decoder
+    the stacked ``encoder`` groups and ``enc_norm`` (None otherwise)."""
 
     # the transformer families' groups, in the order the module keeps them
-    # (any other group of the tree, Mamba2's and Hymba's ssm, follows)
+    # (any other group of the tree, Mamba2's and Hymba's ssm, Whisper's lnx
+    # and xattn, follows; every reader takes a group by name)
     GROUPS = ("ln1", "attn", "ln2", "mlp")
 
     def __init__(self, cfg: ModelConfig, tree: Dict, lora: LoraTree):
@@ -88,6 +93,11 @@ class Transformer(nn.Module):
                             + [g for g in given if g not in self.GROUPS])
         self.layers = nn.ModuleDict(
             {g: ParamGroup(given[g]) for g in self.groups})
+        enc = tree.get("encoder")
+        self.encoder = (None if enc is None else nn.ModuleDict(
+            {g: ParamGroup(grp) for g, grp in enc.items()}))
+        self.enc_norm = (ParamGroup(tree["enc_norm"]) if "enc_norm" in tree
+                         else None)
         self.final_norm = ParamGroup(tree["final_norm"])
         self.lm_head = (_frozen(tree["lm_head"]) if "lm_head" in tree
                         else None)
@@ -102,15 +112,25 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         return self.lm_head if self.lm_head is not None else self.embed.T
 
+    def encoder_groups(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The encoder's stacked groups as the reference's dicts."""
+        return {g: grp.as_dict() for g, grp in self.encoder.items()}
+
     def tree(self) -> Dict:
         """Every tensor in the reference's ``params`` layout: ``embed``,
-        ``layers``, ``final_norm``, ``lm_head`` (untied decoders),
-        ``cls_head`` and ``cls_bias`` (classifiers) and ``lora``. The
-        weights are this module's own Parameters, so a gradient taken
-        with respect to them is one of the module's forward."""
-        tree = {"embed": self.embed, "final_norm": self.final_norm.as_dict(),
-                "layers": {g: self.layers[g].as_dict() for g in self.groups},
-                **self.cls, "lora": self.lora}
+        ``encoder`` and ``enc_norm`` (encoder-decoders), ``layers``,
+        ``final_norm``, ``lm_head`` (untied decoders), ``cls_head`` and
+        ``cls_bias`` (classifiers) and ``lora``. The weights are this
+        module's own Parameters, so a gradient taken with respect to them
+        is one of the module's forward."""
+        tree = {"embed": self.embed}
+        if self.encoder is not None:
+            tree["encoder"] = self.encoder_groups()
+            tree["enc_norm"] = self.enc_norm.as_dict()
+        tree.update(final_norm=self.final_norm.as_dict(),
+                    layers={g: self.layers[g].as_dict()
+                            for g in self.groups},
+                    **self.cls, lora=self.lora)
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
         return tree
@@ -197,57 +217,91 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     return Transformer(cfg, tree, lora)
 
 
+def _dense(gen: torch.Generator, dtype, *shape) -> torch.Tensor:
+    """Normal draws from ``gen`` on its device, scaled by 1/sqrt(d_in)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(1.0 / math.sqrt(shape[-2])).to(dtype)
+
+
+def init_norm(shape, use_bias: bool, dtype, device) -> Dict:
+    """Zero RMS norm weights, or a layer norm's ones and zero bias under
+    ``use_bias``."""
+    p = {"w": torch.zeros(shape, dtype=dtype, device=device)}
+    if use_bias:
+        p["w"] += 1.0
+        p["b"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, L: int, dtype
+              ) -> Dict[str, torch.Tensor]:
+    """``wq``, ``wk``, ``wv``, ``wo`` stacked over ``L`` layers, drawn from
+    ``gen`` in that order, and zero biases under ``use_bias``."""
+    d, hd, dev = cfg.d_model, cfg.resolved_head_dim, gen.device
+    attn = {"wq": _dense(gen, dtype, L, d, cfg.num_heads * hd),
+            "wk": _dense(gen, dtype, L, d, cfg.num_kv_heads * hd),
+            "wv": _dense(gen, dtype, L, d, cfg.num_kv_heads * hd),
+            "wo": _dense(gen, dtype, L, cfg.num_heads * hd, d)}
+    if cfg.use_bias:
+        for n, width in (("bq", cfg.num_heads * hd),
+                         ("bk", cfg.num_kv_heads * hd),
+                         ("bv", cfg.num_kv_heads * hd), ("bo", d)):
+            attn[n] = torch.zeros((L, width), dtype=dtype, device=dev)
+    return attn
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, L: int, dtype
+             ) -> Dict[str, torch.Tensor]:
+    """A dense MLP's ``w1``, ``w2`` (and ``w3`` when gated) stacked over
+    ``L`` layers, and zero biases under ``use_bias``."""
+    d, ff, dev = cfg.d_model, cfg.d_ff, gen.device
+    mlp_p = {"w1": _dense(gen, dtype, L, d, ff),
+             "w2": _dense(gen, dtype, L, ff, d)}
+    if cfg.activation in ("silu", "geglu"):
+        mlp_p["w3"] = _dense(gen, dtype, L, d, ff)
+    if cfg.use_bias:
+        mlp_p["b1"] = torch.zeros((L, ff), dtype=dtype, device=dev)
+        mlp_p["b2"] = torch.zeros((L, d), dtype=dtype, device=dev)
+    return mlp_p
+
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype
+               ) -> torch.Tensor:
+    return torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                       dtype=torch.float32, device=gen.device
+                       ).mul_(0.02).to(dtype)
+
+
 def init_tree(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32
               ) -> Tuple[Dict, LoraTree]:
     """``init_params``' draws from ``gen``, on its device: (the weight
     tree, the adapters), for a caller that adds groups of its own (Hymba's
     ``ssm``) from the same generator."""
     dev = gen.device
-    L, d, hd, ff = (cfg.num_layers, cfg.d_model, cfg.resolved_head_dim,
-                    cfg.d_ff)
-
-    def dense(*shape):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return w.mul_(1.0 / math.sqrt(shape[-2])).to(dtype)
-
-    def norm_init(shape):
-        p = {"w": torch.zeros(shape, dtype=dtype, device=dev)}
-        if cfg.use_bias:
-            p["w"] += 1.0
-            p["b"] = torch.zeros(shape, dtype=dtype, device=dev)
-        return p
-
-    attn = {"wq": dense(L, d, cfg.num_heads * hd),
-            "wk": dense(L, d, cfg.num_kv_heads * hd),
-            "wv": dense(L, d, cfg.num_kv_heads * hd),
-            "wo": dense(L, cfg.num_heads * hd, d)}
+    L, d = cfg.num_layers, cfg.d_model
+    attn = init_attn(gen, cfg, L, dtype)
     if cfg.num_experts:
         mlp_p = moe_lib.init_moe_params(gen, cfg, L, dtype, dev)
+        if cfg.use_bias:
+            mlp_p["b1"] = torch.zeros((L, cfg.d_ff), dtype=dtype, device=dev)
+            mlp_p["b2"] = torch.zeros((L, d), dtype=dtype, device=dev)
     else:
-        mlp_p = {"w1": dense(L, d, ff), "w2": dense(L, ff, d)}
-        if cfg.activation in ("silu", "geglu"):
-            mlp_p["w3"] = dense(L, d, ff)
-    if cfg.use_bias:
-        for n, width in (("bq", cfg.num_heads * hd),
-                         ("bk", cfg.num_kv_heads * hd),
-                         ("bv", cfg.num_kv_heads * hd), ("bo", d)):
-            attn[n] = torch.zeros((L, width), dtype=dtype, device=dev)
-        mlp_p["b1"] = torch.zeros((L, ff), dtype=dtype, device=dev)
-        mlp_p["b2"] = torch.zeros((L, d), dtype=dtype, device=dev)
-    embed = torch.randn((cfg.vocab_size, d), generator=gen,
-                        dtype=torch.float32, device=dev).mul_(0.02).to(dtype)
+        mlp_p = init_mlp(gen, cfg, L, dtype)
+    embed = init_embed(gen, cfg, dtype)
     tree = {"embed": embed,
-            "layers": {"ln1": norm_init((L, d)), "attn": attn,
-                       "ln2": norm_init((L, d)), "mlp": mlp_p},
-            "final_norm": norm_init((d,))}
+            "layers": {"ln1": init_norm((L, d), cfg.use_bias, dtype, dev),
+                       "attn": attn,
+                       "ln2": init_norm((L, d), cfg.use_bias, dtype, dev),
+                       "mlp": mlp_p},
+            "final_norm": init_norm((d,), cfg.use_bias, dtype, dev)}
     lora = init_lora(gen, cfg, device=dev)
     if cfg.num_classes:
-        tree["cls_head"] = dense(d, cfg.num_classes)
+        tree["cls_head"] = _dense(gen, dtype, d, cfg.num_classes)
         tree["cls_bias"] = torch.zeros((cfg.num_classes,), dtype=dtype,
                                        device=dev)
     elif not cfg.tie_embeddings:
-        tree["lm_head"] = dense(d, cfg.vocab_size)
+        tree["lm_head"] = _dense(gen, dtype, d, cfg.vocab_size)
     return tree, lora
 
 

@@ -90,7 +90,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "fed/topology.py", "models/moe.py", "configs/olmoe_1b_7b.py",
                 "configs/llama4_maverick_400b_a17b.py", "models/mamba2.py",
                 "configs/mamba2_2_7b.py", "models/hymba.py",
-                "configs/hymba_1_5b.py"):
+                "configs/hymba_1_5b.py", "models/whisper.py",
+                "configs/whisper_small.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

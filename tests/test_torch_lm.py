@@ -319,13 +319,18 @@ def test_classifier_loss_takes_remat_and_q_chunk():
 # ---------------------------------------------------------------------------
 
 def _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
-                                          name):
+                                          name, noise=()):
     """5 steps of ``examples/lm_pretrain.py``'s own ``main`` (``--arch``
     ``name``'s reduced config, batch 16 x 64, lr 3e-3, ``remat`` with
     q_chunk 64; its losses logged through ``jax.debug.callback`` inside the
     jitted step, its weights read from its checkpoint) against the port's
-    ``train`` from the same seed-0 weights and data."""
-    steps = 5
+    ``train`` from the same seed-0 weights and data. The leaves named in
+    ``noise`` (paths) have a gradient that is zero in exact arithmetic
+    (a key bias under the softmax) and rounding noise on either side,
+    which AdamW turns into steps in no particular direction: their change
+    is not compared, and each side's is held to at most lr an element a
+    step (AdamW's normalised step, which the warmup only shrinks)."""
+    steps, lr = 5, 3e-3
     logged, loss_fn = [], j_model.loss_fn
 
     def logging_loss(*args, **kw):
@@ -349,7 +354,7 @@ def _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
     params = interop.params_from_jax(init, tcfg, device="cpu")
     data = make_bigram_lm(4096, 64, tcfg.vocab_size, seed=0)
     trained, losses = lm_example.train(
-        tcfg, params, data, steps=steps, batch=16, lr=3e-3, remat=True,
+        tcfg, params, data, steps=steps, batch=16, lr=lr, remat=True,
         q_chunk=64, device="cpu")
     np.testing.assert_allclose(losses, logged, rtol=0, atol=LOSS_ATOL)
     assert ref_meta["loss"] == pytest.approx(losses[-1], abs=LOSS_ATOL)
@@ -357,6 +362,10 @@ def _hold_train_against_reference_example(monkeypatch, tmp_path, lm_example,
     want = {p: np.asarray(v) for p, v in _paths(ref_tree).items()}
     assert sorted(got) == sorted(want) == sorted(before)
     for path, w in want.items():
+        if path in noise:
+            for side in (w, got[path]):
+                assert np.abs(side - before[path]).max() <= steps * lr, path
+            continue
         change = np.linalg.norm((w - before[path]).astype(np.float64))
         assert change > 0, path
         err = np.linalg.norm((got[path] - w).astype(np.float64))

@@ -220,17 +220,18 @@ def test_init_params_shapes_and_scales(arch):
 
 
 def test_non_dense_families_raise():
-    """The families not ported yet (audio, vlm) raise; ``ssm`` and
-    ``hybrid`` are taken (``tests/test_torch_mamba2.py``,
-    ``tests/test_torch_hymba.py``): a hybrid variant of gemma-reduced gets
-    both attention and an ``ssm`` group, a nested cache and a decode
+    """The family not ported yet (vlm) raises; ``ssm``, ``hybrid`` and
+    ``audio`` are taken (``tests/test_torch_mamba2.py``,
+    ``tests/test_torch_hymba.py``, ``tests/test_torch_whisper.py``): a
+    hybrid variant of gemma-reduced gets both attention and an ``ssm``
+    group, a nested cache and a decode step; an audio variant gets an
+    encoder, cross-attention, the cross K/V in its cache and a decode
     step."""
-    for arch_type in ("audio", "vlm"):
-        cfg = get_reduced("gemma-2b").with_(arch_type=arch_type)
-        with pytest.raises(NotImplementedError):
-            t_model.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            t_model.init_cache(cfg, 1, 4, device="cpu")
+    cfg = get_reduced("gemma-2b").with_(arch_type="vlm")
+    with pytest.raises(NotImplementedError):
+        t_model.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_model.init_cache(cfg, 1, 4, device="cpu")
     cfg = get_reduced("gemma-2b").with_(arch_type="hybrid", ssm_state=16,
                                         ssm_head_dim=32, sliding_window=4)
     params = t_model.init_params(cfg, device="cpu")
@@ -240,16 +241,30 @@ def test_non_dense_families_raise():
     logits, _ = t_model.decode_step(params, cache, torch.zeros(
         (1, 1), dtype=torch.long), 0, cfg)
     assert logits.shape == (1, cfg.vocab_size)
+    cfg = get_reduced("gemma-2b").with_(arch_type="audio", encoder_layers=1,
+                                        encoder_seq=6, use_bias=True,
+                                        rope_theta=0.0)
+    params = t_model.init_params(cfg, device="cpu")
+    assert params.groups == ("ln1", "attn", "ln2", "mlp", "lnx", "xattn")
+    assert params.encoder is not None and params.enc_norm is not None
+    cache = t_model.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert sorted(cache) == ["cross_k", "cross_v", "self"]
+    assert cache["cross_k"].shape[2] == 6
+    logits, _ = t_model.decode_step(params, cache, torch.zeros(
+        (1, 1), dtype=torch.long), 0, cfg)
+    assert logits.shape == (1, cfg.vocab_size)
 
 
 PORT_CONFIGS = ("gemma-2b", "minitron-4b", "roberta-large", "olmoe-1b-7b",
-                "llama4-maverick-400b-a17b", "mamba2-2.7b", "hymba-1.5b")
+                "llama4-maverick-400b-a17b", "mamba2-2.7b", "hymba-1.5b",
+                "whisper-small")
 
 
 @pytest.mark.parametrize("name", PORT_CONFIGS)
 def test_param_count_matches_reference(name):
     """The port's analytic ``param_count`` and ``active_param_count``
-    equal the reference's for every config the port has, full and
+    equal the reference's for every config the port has (Whisper's with
+    its encoder and cross-attention), full and
     reduced, and for a hybrid variant of each, whose layers count both
     attention and the SSM's ``in_proj`` and ``out_proj`` (Gemma-2B's:
     2,962,620,416, where a count without the SSM gives 2,506,096,640)."""
@@ -264,6 +279,11 @@ def test_param_count_matches_reference(name):
     if name == "gemma-2b":
         assert get_config(name).with_(**hybrid).param_count() \
             == 2_962_620_416
+    if name == "whisper-small":
+        # the encoder's layers and the decoder's cross-attention counted,
+        # and an untied head, as the reference counts it
+        assert get_config(name).param_count() == 277_845_504
+        assert get_reduced(name).param_count() == 720_896
 
 
 def test_interop_carries_moe_leaves_one_to_one():
