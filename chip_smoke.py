@@ -16,14 +16,20 @@ Phases, each of which raises on failure:
    times; bgmv also at B 1, two ragged shapes and ranks 13, 29 and 64, on
    slots out of range (-1, S and -S-1, taken the reference's way), each
    with its plan, its registers and the same bits on a second call, and at
-   another split count; flash_attention also with the same bits on a
-   second call, at the last chunk of a 2k-token prompt, and in every other
+   another split count, and at phase 19's decode projections (d_in 8192,
+   6144 and 12288, d_out down to granite-34b's 128; timed);
+   flash_attention also with the same bits on a
+   second call, at the last chunk of a 2k-token prompt, at a chunk of 64
+   queries with each of phase 19's heads (H, Hkv) = (64, 8), (48, 1) and
+   (96, 8) at D 128 (timed), and in every other
    variant built; the four serving kernels timed in bf16 too at the engine's
    shapes
    (head dims 64 and 128, element-wise staging, one split without the
    merge), its library time the faster of two SDPA calls with the kernels
    each ran; the paged decode and verify kernels with the same bits on a
-   second call at the engine's shape, minitron-4b's GQA heads, 2048
+   second call at the engine's shape, minitron-4b's GQA heads, phase
+   19's heads at head dim 128 (G 8, G 12 and granite-34b's G 48 on one KV
+   head, in the engine's pool, timed), 2048
    positions and every other variant built, each with its split plan and
    registers, the verify kernel also against the decode kernel at one
    token per row; lora_matmul's forward, dx and dA/dB also at the LM
@@ -294,7 +300,26 @@ Phases, each of which raises on failure:
    cache's logits; (d) the LM example's ``train`` at full depth, every
    parameter, zero frames, 30 steps of 16 x 64: finite losses, the last 5
    below the first, 48/24/24 launches a step, peak memory;
-19. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
+19. the reference's remaining dense decoders served at full width and cut
+   depth (``DENSE_SERVE_DEPTHS``), one after another, float32 weights from
+   seed 0, each freed before the next: chameleon-34b (``vlm``, the dense
+   decoder over early-fused token ids; 8192 wide, 64 heads on 8 KV heads
+   of 128, SiLU) at 4 of 48 layers, granite-34b (6144 wide, 48 heads on
+   one KV head, a plain GELU MLP, biases) at 4 of 88 and
+   command-r-plus-104b (12288 wide, 96 heads on 8 KV heads, vocab 256000)
+   at 2 of 64. Each takes phase 4's traffic through ``ServeEngine`` (8
+   prompts of 40-200 tokens from ``default_rng(0)``, 4 adapters of ranks
+   2/4/6/8 on q, k, v and o, pages of 16, chunks of 64) for 16 new tokens:
+   exactly 4 ``bgmv`` and 1 ``paged_attention`` a layer a decode step and
+   1 ``flash_attention`` a layer a prefill chunk, every request's tokens
+   against the merged-weight oracle under phase 4's near-tie rule, the
+   decode step p50, tok/s and peak memory; granite-34b also one
+   forced-accept speculative wave (``spec_k = 4``, the ``ScriptedDrafter``
+   along the plain tokens), its tokens held to the plain wave's as phase 5
+   holds them, fewer dispatches than plain steps and 1
+   ``paged_verify_attention`` a layer a dispatch (G 48); each part's
+   seconds;
+20. a ``{"kernels": [...]}`` summary line, then ``{"ok": true, ...}`` last.
 
 It exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -332,6 +357,15 @@ GAP_TOL = 1e-3
 # the launch counts, the bf16 bound (bf16_logit_rel) and the oracles follow
 # the depth.
 SERVE_LAYERS = 6
+# Phase 19 serves the reference's last three dense decoders at full width.
+# In float32 at full depth none fits one 80 GB card (chameleon-34b 137 GB,
+# granite-34b 136 GB, command-r-plus-104b 428 GB), so each runs at a cut
+# depth that does: 15.4, 8.5 and 37.7 GB of weights. Depth cuts only: every
+# check, request and token stays, and the launch counts and oracles follow
+# the depth. Serving's time is host dispatch a layer, so the cut also keeps
+# the phase short.
+DENSE_SERVE_DEPTHS = {"chameleon-34b": 4, "granite-34b": 4,
+                      "command-r-plus-104b": 2}
 
 # bfloat16 serving against float32 serving, or two bfloat16 evaluations that
 # round in different places (tests/test_torch_serve_bf16.py holds the port
@@ -499,8 +533,11 @@ def compare_scaled(name, got, want, rel: float, why: str) -> float:
 # projections (q/o 2048 -> 2048, k/v 2048 -> 256) at B 8 and B 1, two ragged
 # shapes (the second takes element loads of x, B and y), and R 13, 29 and
 # 64, so that every rank template runs (13 and 29 with element loads of A);
-# the last puts a warp's 32 lanes on one column vector (element loads of B
-# at R 64, a vector or two a block).
+# R 64 at 9 columns puts a warp's 32 lanes on one column vector (element
+# loads of B at R 64, a vector or two a block); then phase 19's decode
+# projections at B 8, R 8: q/o (d_model -> heads x 128) and k/v (d_model
+# -> KV heads x 128) of chameleon-34b (8192), granite-34b (6144, one KV
+# head: d_out 128) and command-r-plus-104b (12288).
 BGMV_CASES = [
     ("decode q/o", 8, 2048, 2048, 8),
     ("decode k/v", 8, 2048, 256, 8),
@@ -513,6 +550,12 @@ BGMV_CASES = [
     ("R 64, k/v", 8, 2048, 256, 64),
     ("R 64, q/o", 8, 2048, 2048, 64),
     ("R 64, 9 columns", 8, 2048, 9, 64),
+    ("decode chameleon-34b q/o", 8, 8192, 8192, 8),
+    ("decode chameleon-34b k/v", 8, 8192, 1024, 8),
+    ("decode granite-34b q/o", 8, 6144, 6144, 8),
+    ("decode granite-34b k/v", 8, 6144, 128, 8),
+    ("decode command-r-plus-104b q/o", 8, 12288, 12288, 8),
+    ("decode command-r-plus-104b k/v", 8, 12288, 1024, 8),
 ]
 # Row i's slot among S = 4: -1, S and -S-1 (taken the reference's way, as
 # 3, 3 and 0) beside slots in range; a batch of one takes -1.
@@ -612,12 +655,12 @@ def check_bgmv(torch, ops, bgmv_mod, gen) -> dict:
                 f"(no single PyTorch call) bound_ms {bd['bound_ms']:.6f} "
                 f"({bd['bound_by']})")
             if dtype == torch.float32:
-                timed.append(f"d_out {d_out}: ms {ms:.4f}, plain_ms "
+                timed.append(f"{d_in} -> {d_out}: ms {ms:.4f}, plain_ms "
                              f"{plain_ms:.4f}, bound_ms {bd['bound_ms']:.6f}")
                 if d_out == 2048:
                     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            "library_ms": None, **bd}
-    log(f"  bgmv row (float32, B 8, d_in 2048, R 8): {'; '.join(timed)}")
+    log(f"  bgmv decode times (float32, B 8, R 8): {'; '.join(timed)}")
     return row
 
 
@@ -625,12 +668,25 @@ def check_bgmv(torch, ops, bgmv_mod, gen) -> dict:
 # lengths, verify q_offsets, verify windows). The engine's pool (8 rows x 13
 # pages of 16, max_seq 208) and a spec_k = 4 window (ragged offsets, 1..5
 # valid tokens, row 0 inactive); minitron-4b's GQA heads (G 3, not a power
-# of two); 2048 positions a row, which the plan splits into runs of pages.
+# of two); phase 19's heads in the same pool: chameleon-34b's (Hkv 8, G 8),
+# command-r-plus-104b's (Hkv 8, G 12) and granite-34b's MQA (Hkv 1, G 48:
+# a decode row spans two blocks of 32 (token, head) rows, the second half
+# full, and a verify row of 5 tokens 240 rows, 7.5 blocks), all at head dim
+# 128; 2048 positions a row, which the plan splits into runs of pages.
 PAGED_SHAPES = [
     ("engine: Gemma-2B", 8, 1, 8, 256, 16, 13,
      (0, 1, 16, 17, 77, 150, 177, 208),
      (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
     ("minitron-4b GQA", 8, 8, 3, 128, 16, 13,
+     (0, 1, 16, 17, 77, 150, 177, 208),
+     (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
+    ("chameleon-34b GQA", 8, 8, 8, 128, 16, 13,
+     (0, 1, 16, 17, 77, 150, 177, 208),
+     (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
+    ("command-r-plus-104b GQA", 8, 8, 12, 128, 16, 13,
+     (0, 1, 16, 17, 77, 150, 177, 208),
+     (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
+    ("granite-34b MQA", 8, 1, 48, 128, 16, 13,
      (0, 1, 16, 17, 77, 150, 177, 208),
      (0, 42, 60, 77, 100, 150, 177, 203), (0, 5, 5, 3, 5, 1, 5, 5)),
     ("long context", 8, 1, 8, 256, 16, 128,
@@ -819,6 +875,11 @@ def time_flash(torch, ops, flash_mod, q, k, v, kw, err) -> dict:
             "library_ms": library_ms, **bd}
 
 
+# Phase 19's heads in a prefill chunk: (label, H, Hkv), head dim 128.
+FLASH_CONFIG_HEADS = (("chameleon-34b", 64, 8), ("granite-34b MQA", 48, 1),
+                      ("command-r-plus-104b", 96, 8))
+
+
 def check_flash(torch, ops, flash_mod, gen) -> dict:
     log("flash_attention (prefill chunk: Sq=64, H=8, Hkv=1, D=256, "
         "Skv=208 gathered pages):")
@@ -861,6 +922,24 @@ def check_flash(torch, ops, flash_mod, gen) -> dict:
                   flash_mod.flash_attention_plain(q, k, v, **kw))
     same_bits("flash_attention", got, again(kw, q, k, v))
     time_flash(torch, ops, flash_mod, q, k, v, kw, err)
+
+    log("flash_attention at phase 19's heads (a prefill chunk: Sq=64, "
+        "D=128, Skv=208 gathered pages, q_offset 128):")
+    for label, h, hkv in FLASH_CONFIG_HEADS:
+        kw = dict(causal=True, window=None, q_offset=128)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(1, 64, h, 128, generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn(1, 208, hkv, 128, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(1, 208, hkv, 128, generator=gen,
+                            device="cuda").to(dtype)
+            got = ops.flash_attention(q, k, v, **kw)
+            err = compare(f"{dtype} {label} (H={h}, Hkv={hkv})", got,
+                          flash_mod.flash_attention_plain(q, k, v, **kw))
+            same_bits("flash_attention", got, again(kw, q, k, v))
+            if dtype == torch.float32:
+                time_flash(torch, ops, flash_mod, q, k, v, kw, err)
 
     # every other variant the source builds: the head-dim templates 128
     # and 64, element-wise staging (D not a multiple of the 16-byte
@@ -1653,34 +1732,49 @@ def recording_cost_us(recorded: bool) -> float:
     return (time.perf_counter() - t0) / RECORD_REPS * 1e6
 
 
+def demo_registry(torch, cfg, ranks) -> tuple:
+    """The serving phases' adapters: ``make_demo_adapter`` of each rank
+    from a card generator seeded 100 + i, named ``client<i>``, registered
+    in a registry of as many slots. Returns (trees by name, registry)."""
+    from repro_torch.serve import AdapterRegistry
+    from repro_torch.serve.oracle import make_demo_adapter
+    trees = {}
+    for i, r in enumerate(ranks):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        trees[f"client{i}"] = make_demo_adapter(gen, cfg, r)
+    registry = AdapterRegistry(cfg, capacity=len(ranks), device="cuda")
+    for aid, tree in trees.items():
+        registry.register(aid, tree)
+    return trees, registry
+
+
+def demo_prompts(np, cfg) -> tuple:
+    """The serving phases' 8 prompts of 40-200 tokens from
+    ``default_rng(0)``. Returns (lengths, prompts)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(40, 201, size=8)
+    return lens, [rng.integers(3, cfg.vocab_size, size=int(n)).astype(
+        np.int32) for n in lens]
+
+
 def run_engine(torch, np) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
-    from repro_torch.serve import AdapterRegistry, ServeEngine
-    from repro_torch.serve.oracle import make_demo_adapter, \
-        merged_greedy_gaps
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.oracle import merged_greedy_gaps
 
     cfg = get_config("gemma-2b").with_(num_layers=SERVE_LAYERS)
     steps, page_size, chunk = 32, 16, 64
     t0 = time.perf_counter()
     params = model_lib.init_params(cfg, seed=0, device="cuda")
     ranks = (2, 4, 6, 8)
-    adapters = {}
-    for i, r in enumerate(ranks):
-        gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        adapters[f"client{i}"] = make_demo_adapter(gen, cfg, r)
-    registry = AdapterRegistry(cfg, capacity=len(ranks), device="cuda")
-    for aid, tree in adapters.items():
-        registry.register(aid, tree)
+    adapters, registry = demo_registry(torch, cfg, ranks)
     torch.cuda.synchronize()
     log(f"  gemma-2b full width, {cfg.num_layers} layers: "
         f"{cfg.param_count() / 1e9:.3f} B params float32, set-up "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(40, 201, size=8)
-    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in lens]
+    lens, prompts = demo_prompts(np, cfg)
     max_seq = int(lens.max()) + steps
     engine = ServeEngine(params, cfg, registry, max_batch=8, max_seq=max_seq,
                          page_size=page_size, prefill_chunk=chunk,
@@ -7174,6 +7268,168 @@ def run_whisper_phase(torch, np) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the remaining dense decoders served at full width
+# ---------------------------------------------------------------------------
+
+# Phase 4's traffic: 8 prompts of 40-200 tokens from default_rng(0), 4
+# adapters of ranks 2/4/6/8 on q, k, v and o, pages of 16, chunks of 64;
+# 16 new tokens a request. Granite's wave is also served speculatively.
+DENSE_SERVE = dict(ranks=(2, 4, 6, 8), steps=16, page_size=16, chunk=64)
+DENSE_SPEC = dict(arch="granite-34b", spec_k=4)
+# init_params zeroes every bias, as the reference does: a biased config's
+# attention and MLP biases are drawn from N(0, DENSE_BIAS_STD^2) (seed 1)
+# so that the engine's bias adds carry numbers the oracle must match.
+DENSE_BIAS_STD = 0.1
+
+
+def serve_dense_config(torch, np, name: str, depth: int) -> dict:
+    """One config of phase 19 at full width and ``depth`` layers, float32
+    weights from seed 0: the plain wave with its exact launch counts, every
+    request against the merged-weight oracle, and for DENSE_SPEC's arch a
+    forced-accept speculative wave against the plain tokens. Frees its
+    weights before it returns the kernels' launches of its waves."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import ScriptedDrafter, ServeEngine
+    from repro_torch.serve.oracle import merged_greedy_gaps
+
+    cfg = get_config(name).with_(num_layers=depth)
+    steps, page_size, chunk = (DENSE_SERVE["steps"], DENSE_SERVE["page_size"],
+                               DENSE_SERVE["chunk"])
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device="cuda")
+    biases = []
+    if cfg.use_bias:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            for group in ("attn", "mlp"):
+                for n, p in sorted(params.layers[group].as_dict().items()):
+                    if n.startswith("b"):
+                        p.normal_(0.0, DENSE_BIAS_STD, generator=gen)
+                        biases.append(n)
+    trees, registry = demo_registry(torch, cfg, DENSE_SERVE["ranks"])
+    names = list(trees)
+    torch.cuda.synchronize()
+    full = get_config(name)
+    bias_note = (f"{'/'.join(biases)} (std {DENSE_BIAS_STD})" if biases
+                 else "none")
+    log(f"  {name} ({cfg.arch_type}, {full.source}) at full width, {L} of "
+        f"{full.num_layers} layers: d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads ({cfg.num_kv_heads} KV, G {cfg.num_heads // cfg.num_kv_heads})"
+        f" of {cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.activation}, "
+        f"biases {bias_note}, vocab {cfg.vocab_size}: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters float32 ("
+        f"{full.param_count() / 1e9:.1f} B at full depth), set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    lens, prompts = demo_prompts(np, cfg)
+    adapters = [names[i % len(names)] for i in range(8)]
+    kw = dict(max_batch=8, max_seq=int(lens.max()) + steps,
+              page_size=page_size, prefill_chunk=chunk)
+    engine = ServeEngine(params, cfg, registry, device="cuda", **kw)
+    # warm-up (cuBLAS handles, allocator): not counted
+    engine.submit(prompts[0][:chunk + 3], "client0", max_new_tokens=3)
+    engine.run()
+    steps0, calls0 = engine.steps, engine.prefill_calls
+    ctx = {"prompts": prompts, "adapters": adapters, "steps": steps}
+    t1 = time.perf_counter()
+    plain, launches, wall, rows = serve_wave(torch, ops, engine, ctx)
+    n_steps = engine.steps - steps0
+    n_chunks = engine.prefill_calls - calls0
+    for kernel in ("bgmv", "paged_attention", "flash_attention"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name}: kernel {kernel} never launched")
+    hold_launches(f"{name} plain wave ({n_steps} steps, {n_chunks} prefill "
+                  f"chunks; 4 bgmv and 1 paged_attention a layer a step, 1 "
+                  f"flash_attention a layer a chunk)", launches,
+                  {"bgmv": 4 * L * n_steps, "paged_attention": L * n_steps,
+                   "flash_attention": L * n_chunks})
+    log(f"  {name}: served 8 requests x {steps} tokens (prompts "
+        f"{lens.tolist()}) in {wall:.3f} s: {8 * steps / wall:.1f} tok/s; "
+        f"decode step p50 {decode_p50_ms(np, rows):.3f} ms "
+        f"({sum(c == 0 for _, c in rows)} decode-only steps, step_batch "
+        f"timed from outside); KV pool {engine.kv_cache_bytes() / 2**20:.1f}"
+        f" MiB")
+    del engine
+    t2 = time.perf_counter()
+    oracle, gaps, exact = [], [], 0
+    for i in range(8):
+        want, gap = merged_greedy_gaps(params, cfg, prompts[i],
+                                       trees[adapters[i]], steps)
+        oracle.append(want)
+        gaps.append(gap)
+        msg = first_difference_ok(plain[i], want, want, gap)
+        if msg:
+            log(f"    {name} request {i} against the oracle: {msg}")
+        else:
+            exact += 1
+    log(f"  {name}: oracle (merged weights, token-by-token plain decode): "
+        f"{exact}/8 exact, the rest within GAP_TOL {GAP_TOL}")
+    t3 = time.perf_counter()
+    if name == DENSE_SPEC["arch"]:
+        spec = ServeEngine(params, cfg, registry, drafter=ScriptedDrafter(),
+                           spec_k=DENSE_SPEC["spec_k"], device="cuda", **kw)
+        outs, spec_launches, spec_wall, _ = serve_wave(
+            torch, ops, spec, ctx, scripts=plain)
+        st = spec.spec_stats()
+        hold_launches(f"{name} forced-accept speculative wave "
+                      f"({st['dispatches']} dispatches, "
+                      f"{spec.prefill_calls} prefill chunks; 1 "
+                      f"paged_verify_attention a layer a dispatch at G "
+                      f"{cfg.num_heads // cfg.num_kv_heads})", spec_launches,
+                      {"paged_verify_attention": L * st["dispatches"],
+                       "flash_attention": L * spec.prefill_calls})
+        same = 0
+        for i, out in enumerate(outs):
+            msg = first_difference_ok(out, plain[i], oracle[i], gaps[i])
+            if msg:
+                log(f"    {name} speculative request {i} against plain "
+                    f"decode: {msg}")
+            else:
+                same += 1
+        # the script is the plain tokens: where every request equals them,
+        # every draft is accepted
+        if not 0 < st["dispatches"] < n_steps \
+                or (same == 8 and st["accepted"] != st["drafted"]):
+            raise AssertionError(f"{name} forced-accept: {st}, plain "
+                                 f"decode took {n_steps} steps")
+        log(f"  {name} speculative wave (spec_k {DENSE_SPEC['spec_k']}, "
+            f"forced-accept along the plain tokens): {same}/8 equal to plain "
+            f"decode; {st['dispatches']} dispatches against {n_steps} plain "
+            f"steps, acceptance {st['acceptance_rate']:.3f}; "
+            f"{8 * steps / spec_wall:.1f} tok/s ({spec_wall:.3f} s)")
+        for kernel, n in spec_launches.items():
+            launches[kernel] += n
+        spec.kv.allocator.check()
+        del spec
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {name} parts: set-up and warm-up {t1 - t0:.1f} s, plain wave "
+        f"{t2 - t1:.1f} s, oracle {t3 - t2:.1f} s, speculative wave "
+        f"{t4 - t3:.1f} s; peak memory {peak:.2f} GiB")
+    del params, registry, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_dense_configs(torch, np) -> dict:
+    """Phase 19: each of DENSE_SERVE_DEPTHS' configs in turn, each freed
+    before the next. Returns the kernels' launches summed over their
+    waves."""
+    total = {}
+    for name, depth in DENSE_SERVE_DEPTHS.items():
+        t0 = time.perf_counter()
+        for kernel, n in serve_dense_config(torch, np, name, depth).items():
+            total[kernel] = total.get(kernel, 0) + n
+        log(f"  {name} took {time.perf_counter() - t0:.1f} s; "
+            f"{device_line()}")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7347,6 +7603,18 @@ def main() -> int:
     for name, n in run_whisper_phase(torch, np).items():
         launches[name] += n
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[19] the remaining dense decoders served at full width: "
+        + ", ".join(f"{n} at {d} layers"
+                    for n, d in DENSE_SERVE_DEPTHS.items()))
+    t0 = time.perf_counter()
+    # a further counted path for the serving kernels: each config's plain
+    # wave, and granite-34b's speculative wave for the verify kernel at G 48
+    for name, n in run_dense_configs(torch, np).items():
+        launches[name] += n
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    log("[20] kernels")
 
     meta = {"bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
                      "src/repro/kernels/bgmv.py:43"),

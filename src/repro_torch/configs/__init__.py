@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (LoRAConfig, ModelConfig, get_config,
-                                      get_reduced)
+from repro_torch.configs.base import (ARCH_IDS, LoRAConfig, ModelConfig,
+                                      canonical, get_config, get_reduced,
+                                      list_archs)
 
-__all__ = ["LoRAConfig", "ModelConfig", "get_config", "get_reduced"]
+__all__ = ["ARCH_IDS", "LoRAConfig", "ModelConfig", "canonical",
+           "get_config", "get_reduced", "list_archs"]

@@ -1,6 +1,7 @@
 """Config system for the PyTorch port: the dense, mixture-of-experts,
 state-space, hybrid and encoder-decoder fields of the reference's
-``repro.configs.base`` (a copy, so the port imports nothing of ``repro``).
+``repro.configs.base``, its aliases and ``ARCH_IDS`` (a copy, so the port
+imports nothing of ``repro``; ``INPUT_SHAPES`` is not copied yet).
 
 Each architecture file defines ``CONFIG`` (the published shape, cited)
 and ``reduced()`` (a tiny same-family variant for CPU tests).
@@ -25,9 +26,10 @@ class LoRAConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    # "dense", "moe", "ssm", "hybrid" (decoders), "encoder" or "audio";
-    # "hybrid" is Hymba's: attention and SSD heads in parallel in every
-    # layer; "audio" is Whisper's encoder-decoder
+    # "dense", "moe", "ssm", "hybrid", "vlm" (decoders), "encoder" or
+    # "audio"; "hybrid" is Hymba's: attention and SSD heads in parallel in
+    # every layer; "vlm" is Chameleon's early fusion, the dense decoder over
+    # token ids; "audio" is Whisper's encoder-decoder
     arch_type: str
     num_layers: int
     d_model: int
@@ -124,15 +126,34 @@ class ModelConfig:
         return self.param_count() - self.num_layers * inactive
 
 
+# The reference's configs in its order (``list_archs``); every one resolves
+# in the port.
+ARCH_IDS = (
+    "hymba_1_5b",
+    "mamba2_2_7b",
+    "minitron_4b",
+    "llama4_maverick_400b_a17b",
+    "whisper_small",
+    "chameleon_34b",
+    "olmoe_1b_7b",
+    "granite_34b",
+    "gemma_2b",
+    "command_r_plus_104b",
+    "roberta_large",  # the paper's own model
+)
+
 _ALIASES = {
-    "gemma-2b": "gemma_2b",
-    "minitron-4b": "minitron_4b",
-    "roberta-large": "roberta_large",
-    "olmoe-1b-7b": "olmoe_1b_7b",
-    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
-    "mamba2-2.7b": "mamba2_2_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "minitron-4b": "minitron_4b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "whisper-small": "whisper_small",
+    "chameleon-34b": "chameleon_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "granite-34b": "granite_34b",
+    "gemma-2b": "gemma_2b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "roberta-large": "roberta_large",
 }
 
 
@@ -148,3 +169,7 @@ def get_config(name: str) -> ModelConfig:
 def get_reduced(name: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     return mod.reduced()
+
+
+def list_archs():
+    return list(ARCH_IDS)

@@ -1,6 +1,7 @@
 """Unified model API (port of ``repro/models/model.py``: the dense and
-mixture-of-experts decoders, the Mamba2 state-space decoder, the Hymba
-hybrid decoder, the Whisper encoder-decoder and the encoder classifier).
+mixture-of-experts decoders, the vlm decoder, the Mamba2 state-space
+decoder, the Hymba hybrid decoder, the Whisper encoder-decoder and the
+encoder classifier).
 
     init_params(cfg, seed, dtype, device)              -> Transformer
     forward(params, batch, cfg, remat=, q_chunk=)      -> (logits, aux)
@@ -39,7 +40,11 @@ batch's ``frames`` (a stub for the conv front end) and decodes with
 cross-attention over them; ``forward`` without ``frames`` raises
 ``ValueError``. Its decode cache holds the cross K/V, which
 ``whisper.prefill_cache`` fills from the frames (``init_cache`` gives
-zeros). ``vlm`` raises ``NotImplementedError``.
+zeros).
+
+``vlm`` (Chameleon's early fusion: image and text tokens in one vocabulary,
+the VQ image tokenizer a stub) runs the dense transformer, as in the
+reference. Any other ``arch_type`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -118,8 +123,8 @@ def _mamba_decode(params: tf_lib.Transformer, cache: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "audio",
-                             "encoder"):
+    if cfg.arch_type not in ("dense", "moe", "vlm", "ssm", "hybrid",
+                             "audio", "encoder"):
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} is not ported yet")
 
@@ -139,7 +144,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         return hymba_lib.init_params(cfg, seed, dtype, device)
     if cfg.arch_type == "audio":
         return whisper_lib.init_params(cfg, seed, dtype, device)
-    return tf_lib.init_params(cfg, seed, dtype, device)
+    return tf_lib.init_params(cfg, seed, dtype, device)  # dense/moe/vlm
 
 
 def forward(params: tf_lib.Transformer, batch: Dict[str, torch.Tensor],

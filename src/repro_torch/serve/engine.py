@@ -329,7 +329,7 @@ class ServeEngine:
                  recorder=None, metrics: Optional[MetricsRegistry] = None,
                  slo_ttft_s: Optional[Dict[str, float]] = None,
                  name: str = "serve", device=None):
-        if cfg.arch_type != "dense":
+        if cfg.arch_type not in ("dense", "vlm"):
             raise NotImplementedError(
                 f"serving supports the dense transformer family, got "
                 f"{cfg.arch_type!r}")

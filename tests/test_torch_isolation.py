@@ -91,7 +91,8 @@ def test_port_modules_mirror_the_reference_layout():
                 "configs/llama4_maverick_400b_a17b.py", "models/mamba2.py",
                 "configs/mamba2_2_7b.py", "models/hymba.py",
                 "configs/hymba_1_5b.py", "models/whisper.py",
-                "configs/whisper_small.py"):
+                "configs/whisper_small.py", "configs/chameleon_34b.py",
+                "configs/granite_34b.py", "configs/command_r_plus_104b.py"):
         assert (PORT / rel).exists(), rel
         assert (ROOT / "src" / "repro" / rel).exists(), rel
 

@@ -220,18 +220,35 @@ def test_init_params_shapes_and_scales(arch):
 
 
 def test_non_dense_families_raise():
-    """The family not ported yet (vlm) raises; ``ssm``, ``hybrid`` and
-    ``audio`` are taken (``tests/test_torch_mamba2.py``,
-    ``tests/test_torch_hymba.py``, ``tests/test_torch_whisper.py``): a
-    hybrid variant of gemma-reduced gets both attention and an ``ssm``
-    group, a nested cache and a decode step; an audio variant gets an
-    encoder, cross-attention, the cross K/V in its cache and a decode
-    step."""
-    cfg = get_reduced("gemma-2b").with_(arch_type="vlm")
+    """Every family of the reference is taken now; an unknown one still
+    raises. ``vlm`` (Chameleon's early fusion) runs the dense decoder, as
+    in the reference: a vlm variant of gemma-reduced gets the dense groups,
+    the dense cache and a decode step whose logits equal the dense
+    model's. ``ssm``, ``hybrid`` and ``audio`` are taken
+    (``tests/test_torch_mamba2.py``, ``tests/test_torch_hymba.py``,
+    ``tests/test_torch_whisper.py``): a hybrid variant of gemma-reduced
+    gets both attention and an ``ssm`` group, a nested cache and a decode
+    step; an audio variant gets an encoder, cross-attention, the cross K/V
+    in its cache and a decode step."""
     with pytest.raises(NotImplementedError):
-        t_model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_model.init_cache(cfg, 1, 4, device="cpu")
+        t_model.init_params(get_reduced("gemma-2b").with_(arch_type="image"),
+                            device="cpu")
+    dense = get_reduced("gemma-2b")
+    cfg = dense.with_(arch_type="vlm")
+    params = t_model.init_params(cfg, device="cpu")
+    assert params.groups == t_tf.Transformer.GROUPS == ("ln1", "attn", "ln2",
+                                                        "mlp")
+    cache = t_model.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert sorted(cache) == sorted(t_model.init_cache(
+        dense, 1, 8, torch.float32, device="cpu"))
+    tok = torch.zeros((1, 1), dtype=torch.long)
+    logits, _ = t_model.decode_step(params, cache, tok, 0, cfg)
+    assert logits.shape == (1, cfg.vocab_size)
+    want, _ = t_model.decode_step(
+        t_model.init_params(dense, device="cpu"),
+        t_model.init_cache(dense, 1, 8, torch.float32, device="cpu"), tok, 0,
+        dense)
+    assert torch.equal(logits, want)
     cfg = get_reduced("gemma-2b").with_(arch_type="hybrid", ssm_state=16,
                                         ssm_head_dim=32, sliding_window=4)
     params = t_model.init_params(cfg, device="cpu")
@@ -257,7 +274,8 @@ def test_non_dense_families_raise():
 
 PORT_CONFIGS = ("gemma-2b", "minitron-4b", "roberta-large", "olmoe-1b-7b",
                 "llama4-maverick-400b-a17b", "mamba2-2.7b", "hymba-1.5b",
-                "whisper-small")
+                "whisper-small", "chameleon-34b", "granite-34b",
+                "command-r-plus-104b")
 
 
 @pytest.mark.parametrize("name", PORT_CONFIGS)
